@@ -1,0 +1,8 @@
+"""Datasets and client partitions of the port (seeded numpy, bit-equal)."""
+from repro_torch.data.partition import (
+    dirichlet_partition, equal_partition, server_split,
+)
+from repro_torch.data.synthetic import DatasetSpec, make_eurosat, make_statlog
+
+__all__ = ["DatasetSpec", "make_eurosat", "make_statlog",
+           "dirichlet_partition", "equal_partition", "server_split"]

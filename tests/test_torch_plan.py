@@ -1,0 +1,130 @@
+"""Port constellation, config, comm model and plan compiler vs the JAX package.
+
+The plan logic is held first on a trace built by the JAX package (plain
+numpy), array for array and exactly; then the port's own trace is held
+equal to the JAX package's (access exactly, positions to one float32
+ulp at LEO radii), and so is the plan compiled from it.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.constellation import build_trace as jax_build_trace
+from repro.core import CommLog as JaxCommLog
+from repro.core import CommModel as JaxCommModel
+from repro.core import SatQFLConfig as JaxConfig
+from repro.core.plan import compile_round_plan as jax_compile
+from repro_torch.constellation import ConstellationTrace, build_trace
+from repro_torch.core import CommLog, CommModel, SatQFLConfig
+from repro_torch.core.plan import compile_round_plan
+
+TRACE_ARGS = dict(n_sats=12, n_planes=4, duration_s=1800, step_s=60)
+PLAN_FIELDS = ("t_idx", "primary_mask", "assignment", "part_mask", "hops",
+               "latency_s", "window_wait_s", "group_size", "seeds", "weights")
+EDGE_FIELDS = ("n_stages", "ptr", "src", "dst", "link", "conc", "mask",
+               "first", "born")
+
+
+@pytest.fixture(scope="module")
+def traces():
+    jt = jax_build_trace(**TRACE_ARGS)
+    return jt, build_trace(**TRACE_ARGS, device="cpu")
+
+
+def _as_port_trace(jt):
+    return ConstellationTrace(**{f.name: getattr(jt, f.name)
+                                 for f in dataclasses.fields(
+                                     ConstellationTrace)})
+
+
+def _assert_plans_equal(pt, pj, latency_rtol=0.0):
+    assert (pt.n_rounds, pt.n_sats, pt.step_s) == (pj.n_rounds, pj.n_sats,
+                                                   pj.step_s)
+    for f in PLAN_FIELDS:
+        a, b = getattr(pt, f), getattr(pj, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_allclose(a, b, rtol=latency_rtol if f == "latency_s"
+                                   else 0.0, atol=0, err_msg=f)
+    for f in EDGE_FIELDS:
+        np.testing.assert_array_equal(getattr(pt.edges, f),
+                                      getattr(pj.edges, f), err_msg=f)
+    for r in range(pt.n_rounds):
+        assert pt.groups(r) == pj.groups(r)
+        assert pt.unreachable(r) == pj.unreachable(r)
+        assert pt.participants(r) == pj.participants(r)
+        for j in range(int(pt.edges.ptr[r, -1])):
+            assert pt.edges.edge_tuple(r, j) == pj.edges.edge_tuple(r, j)
+
+
+@pytest.mark.parametrize("mode", ["qfl", "sim"])
+def test_plan_on_jax_trace_is_exact(traces, mode):
+    jt, _ = traces
+    counts = list(range(30, 42))
+    fl = dict(mode=mode, n_rounds=4, h_max=2)
+    pj = jax_compile(jt, JaxConfig(**fl), sample_counts=counts,
+                     with_seeds=False)
+    pt = compile_round_plan(_as_port_trace(jt), SatQFLConfig(**fl),
+                            sample_counts=counts)
+    _assert_plans_equal(pt, pj)
+
+
+def test_port_trace_and_its_plan_match(traces):
+    jt, tt = traces
+    np.testing.assert_array_equal(tt.times_s, jt.times_s)
+    for f in ("sg_access", "ss_access"):
+        np.testing.assert_array_equal(getattr(tt, f), getattr(jt, f),
+                                      err_msg=f)
+    # float32 trig: at most one ulp (2^-10 km at LEO radii) per coordinate
+    np.testing.assert_allclose(tt.sat_pos, jt.sat_pos, rtol=0,
+                               atol=2.0 ** -10)
+    # latency sums ISL distances of those positions: measured 8.5e-8
+    # relative apart; every discrete plan array stays exactly equal
+    fl = dict(mode="sim", n_rounds=3)
+    _assert_plans_equal(compile_round_plan(tt, SatQFLConfig(**fl)),
+                        jax_compile(jt, JaxConfig(**fl), with_seeds=False),
+                        latency_rtol=1e-6)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(mode="ring"), dict(security="tls"), dict(on_qber_abort="retry"),
+    dict(agg_security="he"), dict(agg_security="secagg", mode="sim"),
+    dict(max_staleness=-1), dict(n_rounds=0), dict(local_steps=0),
+    dict(batch_size=0), dict(crash_rate=1.5), dict(straggler_extra_s=-1.0),
+    dict(on_fault="ignore"), dict(max_retries=-1),
+    dict(retry_backoff_steps=0), dict(max_retries=2, mode="sim"),
+    dict(corrupt_rate=0.1)])
+def test_config_rejections_match(bad):
+    with pytest.raises(ValueError):
+        JaxConfig(**bad)
+    with pytest.raises(ValueError):
+        SatQFLConfig(**bad)
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(mode="seq"), "item 7"), (dict(mode="async"), "item 7"),
+    (dict(security="qkd"), "item 6"),
+    (dict(mode="async", agg_security="secagg"), "item 7"),
+    (dict(crash_rate=0.1), "item 8"), (dict(link_flap_rate=0.1), "item 8")])
+def test_plan_refuses_what_is_not_ported(traces, kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        compile_round_plan(traces[1], SatQFLConfig(n_rounds=2, **kw))
+
+
+def test_comm_model_and_log_match():
+    cj, ct = JaxCommModel(), CommModel()
+    for n, c in ((1000, 1), (123457, 3), (8, 16)):
+        assert ct.isl_transfer(n, c) == cj.isl_transfer(n, c)
+        assert ct.feeder_transfer(n, c) == cj.feeder_transfer(n, c)
+    assert ct.qkd_time(512) == cj.qkd_time(512)
+    lj, lt = JaxCommLog(), CommLog()
+    for log in (lj, lt):
+        for r in range(3):
+            log.count_transfer(100 * (r + 1))
+            log.add_wall(0.5 * r)
+            log.add_wait(0.25)
+            log.close_round()
+    assert lt.round_details == lj.round_details
+    assert (lt.per_round, lt.total_s) == (lj.per_round, lj.total_s)
