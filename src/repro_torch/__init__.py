@@ -9,8 +9,10 @@ where no GPU is present (see :func:`repro_torch.device.resolve_device`);
 pass ``device="cpu"`` to run on the CPU, where each kernel wrapper takes
 its plain PyTorch version.
 
-This first slice covers the trainer's main path: ``SatQFLTrainer`` in
-modes ``qfl`` and ``sim`` under ``security="none"``, training the paper's
-VQC with the fused gate layer running as a hand-written CUDA kernel
-(``repro_torch.kernels.statevec_gate``).
+The port covers the trainer's main path: ``SatQFLTrainer`` in modes
+``qfl`` and ``sim`` under ``security`` none, qkd or qkd_fernet, training
+the paper's VQC with the fused gate layer running as a hand-written CUDA
+kernel (``repro_torch.kernels.statevec_gate``) and securing every model
+exchange with BB84 keys, threefry pads and the GF(2^31 - 1) MAC, the
+XOR and MAC fused in a second CUDA kernel (``repro_torch.kernels.otp_xor``).
 """

@@ -7,12 +7,14 @@ sizes, FedAvg weights, and the EdgeSchedule's per-stage CSR of every
 exchange a round performs. The trainer reads groups, weights and stages
 from the plan instead of re-deriving them inside the round loop.
 
-This slice compiles plans for modes ``qfl`` and ``sim`` under
-``security="none"`` with every fault rate at 0, i.e. the JAX package's
-``compile_round_plan(..., with_seeds=False)`` without a key registry:
-``seeds`` is all zeros, the EdgeSchedule carries no key material, and
-there is no staleness or fault schedule. Other configurations raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+The port compiles plans for modes ``qfl`` and ``sim`` under
+``security`` none, qkd or qkd_fernet, with every fault rate at 0. Given a
+key registry (the trainer's :class:`~repro_torch.security.keys.KeyManager`)
+the EdgeSchedule carries per-(round, edge) key material, every edge
+established in one batched BB84; ``with_seeds=True`` also fills the
+per-(round, satellite) ``seeds``. There is no staleness or fault schedule
+yet. Other configurations raise ``NotImplementedError`` naming the ROADMAP
+item that brings them.
 """
 from __future__ import annotations
 
@@ -20,18 +22,15 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from repro_torch import prng
 from repro_torch.constellation.topology import (
     ConstellationTrace, isl_routes_batched, pairwise_distances, round_steps,
 )
 from repro_torch.core.flconfig import SatQFLConfig
+from repro_torch.security.keys import (KeyManager, canonical_edge,
+                                       mac_key_mix, round_seed_mix)
 
 GROUND = -1    # edge endpoint id for the ground station ("gs")
-
-
-def canonical_edge(edge: tuple) -> tuple:
-    """Edges are undirected; endpoints may be ints (sats) or strings.
-    (A copy of ``repro.security.keys.canonical_edge``.)"""
-    return tuple(sorted(edge, key=str))
 
 
 @dataclass(frozen=True)
@@ -42,6 +41,12 @@ class EdgeSchedule:
     stage = one batched dispatch: the ISL uplinks of a ``sim`` round, or
     the feeder uplinks); ``ptr`` bounds each (round, stage) CSR-style and
     the tail past ``ptr[r, -1]`` is padding (``mask`` False).
+
+    Key material (seed/mac_r/mac_s/abort) is filled only when a key
+    registry was given at compile time (``with_keys``): pad seeds come
+    from ``round_seed_mix`` of the edge seed and the BORN round, ``first``
+    marks each edge's first planned use (where QKD time is paid), and
+    ``abort`` marks edges whose QBER crossed the abort threshold.
     """
     n_stages: np.ndarray      # (R,) int — dispatch stages per round
     ptr: np.ndarray           # (R, S_max + 1) int — CSR offsets per stage
@@ -51,7 +56,12 @@ class EdgeSchedule:
     conc: np.ndarray          # (R, E_max) int — ISL-aperture concurrency
     mask: np.ndarray          # (R, E_max) bool — valid edge
     first: np.ndarray         # (R, E_max) bool — first planned use of the edge
+    abort: np.ndarray         # (R, E_max) bool — QBER abort at establishment
     born: np.ndarray          # (R, E_max) int — round the payload was trained
+    seed: np.ndarray          # (R, E_max) uint32 — per-(born, edge) pad seed
+    mac_r: np.ndarray         # (R, E_max) uint32 — MAC evaluation point
+    mac_s: np.ndarray         # (R, E_max) uint32 — MAC blind
+    with_keys: bool           # key-material columns populated?
 
     def stage_bounds(self, r: int, stage: int) -> tuple[int, int]:
         return int(self.ptr[r, stage]), int(self.ptr[r, stage + 1])
@@ -79,7 +89,8 @@ class RoundPlan:
                                   #   window opens (0 = open now, inf = never)
     group_size: np.ndarray        # (R, N) int — secondaries uploading to this
                                   #   sat's main (the ISL concurrency divisor)
-    seeds: np.ndarray             # (R, N) uint32 — pad seeds (0: no security)
+    seeds: np.ndarray             # (R, N) uint32 — uplink pad seeds
+                                  #   (``with_seeds``; else 0)
     weights: np.ndarray           # (N,) float32 — FedAvg aggregation weights w_i
     edges: EdgeSchedule | None = None
 
@@ -142,7 +153,32 @@ def _round_stages(fl: SatQFLConfig, assignment_r, prim_r, n_sats: int):
             [(m, GROUND, 1, 1) for m in groups]]
 
 
-def _edge_schedule(fl: SatQFLConfig, assignment, prim) -> EdgeSchedule:
+def _seed_schedule(assignment, prim, fl: SatQFLConfig, keymgr: KeyManager):
+    """(R, N) uint32 round seeds of every satellite's uplink edge: qfl
+    and mains over the feeder (sat, "gs"), secondaries over the ISL to
+    their main; unreachable satellites keep seed 0. Every edge is
+    established in one batched BB84."""
+    R, N = assignment.shape
+    cells = {}
+    for r in range(R):
+        for s in range(N):
+            if fl.mode == "qfl" or prim[r, s]:
+                edge = ("gs", s)
+            elif assignment[r, s] >= 0:
+                edge = (s, int(assignment[r, s]))
+            else:
+                continue
+            cells[(r, s)] = canonical_edge(edge)
+    eks = keymgr.establish_edges(list(dict.fromkeys(cells.values())))
+    base = {ek.edge: ek.seed for ek in eks}
+    seeds = np.zeros((R, N), np.uint32)
+    for (r, s), edge in cells.items():
+        seeds[r, s] = round_seed_mix(base[edge], r)
+    return seeds
+
+
+def _edge_schedule(fl: SatQFLConfig, assignment, prim,
+                   keymgr: KeyManager | None) -> EdgeSchedule:
     """Compile the per-round exchange plane (see EdgeSchedule)."""
     R, N = assignment.shape
     per_round = [_round_stages(fl, assignment[r], prim[r], N)
@@ -156,8 +192,13 @@ def _edge_schedule(fl: SatQFLConfig, assignment, prim) -> EdgeSchedule:
     conc = np.ones((R, E_max), np.int64)
     mask = np.zeros((R, E_max), bool)
     first = np.zeros((R, E_max), bool)
+    abort = np.zeros((R, E_max), bool)
     born = np.zeros((R, E_max), np.int64)
-    seen: set = set()
+    seed = np.zeros((R, E_max), np.uint32)
+    mac_r = np.zeros((R, E_max), np.uint32)
+    mac_s = np.zeros((R, E_max), np.uint32)
+    cells: dict = {}
+    seen: dict = {}             # edges in order of first planned use
     for r, stages in enumerate(per_round):
         j = 0
         for si, stage in enumerate(stages):
@@ -166,15 +207,28 @@ def _edge_schedule(fl: SatQFLConfig, assignment, prim) -> EdgeSchedule:
                 src[r, j], dst[r, j] = a, b
                 link[r, j], conc[r, j], mask[r, j] = lk, c, True
                 born[r, j] = r
+                cells[r, j] = e
                 if e not in seen:
-                    seen.add(e)
+                    seen[e] = None
                     first[r, j] = True
                 j += 1
             ptr[r, si + 1] = j
         ptr[r, len(stages):] = j
+
+    if keymgr is not None and seen:
+        # ONE batched BB84 for every edge the whole plan will ever use
+        info = {ek.edge: ek for ek in keymgr.establish_edges(list(seen))}
+        for (r, j), e in cells.items():
+            ek = info[e]
+            abort[r, j] = ek.compromised
+            # pad seeds fold in the BORN round: one pad per (edge, born)
+            seed[r, j] = round_seed_mix(ek.seed, born[r, j])
+            mac_r[r, j], mac_s[r, j] = mac_key_mix(seed[r, j])
     return EdgeSchedule(n_stages=np.asarray([len(st) for st in per_round]),
                         ptr=ptr, src=src, dst=dst, link=link, conc=conc,
-                        mask=mask, first=first, born=born)
+                        mask=mask, first=first, abort=abort, born=born,
+                        seed=seed, mac_r=mac_r, mac_s=mac_s,
+                        with_keys=keymgr is not None)
 
 
 def check_supported(fl: SatQFLConfig):
@@ -183,10 +237,10 @@ def check_supported(fl: SatQFLConfig):
         raise NotImplementedError(
             f"mode={fl.mode!r} is not ported yet (ROADMAP queue 1, item 7: "
             f"seq + async v2 + secagg)")
-    if fl.security != "none":
+    if fl.security == "teleport":
         raise NotImplementedError(
-            f"security={fl.security!r} is not ported yet (ROADMAP queue 1, "
-            f"item 6: the security plane)")
+            "security='teleport' is not ported yet (ROADMAP queue 1, "
+            "item 9: teleport + parameter-shift)")
     if fl.agg_security != "none":
         raise NotImplementedError(
             "agg_security='secagg' is not ported yet (ROADMAP queue 1, "
@@ -199,12 +253,18 @@ def check_supported(fl: SatQFLConfig):
 
 
 def compile_round_plan(trace: ConstellationTrace, fl: SatQFLConfig, *,
-                       sample_counts=None,
-                       round_stride: int | None = None) -> RoundPlan:
+                       sample_counts=None, keymgr: KeyManager | None = None,
+                       round_stride: int | None = None,
+                       with_seeds: bool = False, device=None) -> RoundPlan:
     """Compile trace + config into a :class:`RoundPlan`.
 
     sample_counts — per-satellite dataset sizes for FedAvg weighting
-    (used when ``fl.weight_by_samples``).
+    (used when ``fl.weight_by_samples``); keymgr — a QKD key registry (the
+    trainer's), whose edge keys fill the EdgeSchedule's key material;
+    with_seeds — also fill the per-satellite ``seeds``, with a registry
+    made from ``fl.seed`` on ``device`` where none is given. Unlike the
+    JAX package, ``with_seeds`` defaults to False: a plan without a
+    registry runs no BB84 (the trainer passes its own).
     """
     check_supported(fl)
     t_idx = round_steps(trace, fl.n_rounds, round_stride)
@@ -231,6 +291,14 @@ def compile_round_plan(trace: ConstellationTrace, fl: SatQFLConfig, *,
     else:
         weights = np.ones((N,), np.float32)
 
+    if with_seeds:
+        if keymgr is None:
+            keymgr = KeyManager(prng.PRNGKey(fl.seed + 7, device),
+                                n_qkd_bits=fl.qkd_bits)
+        seeds = _seed_schedule(assignment, prim, fl, keymgr)
+    else:
+        seeds = np.zeros((R, N), np.uint32)
+
     return RoundPlan(
         n_rounds=R, n_sats=N,
         step_s=(float(trace.times_s[1] - trace.times_s[0])
@@ -238,5 +306,5 @@ def compile_round_plan(trace: ConstellationTrace, fl: SatQFLConfig, *,
         t_idx=np.asarray(t_idx), primary_mask=prim, assignment=assignment,
         part_mask=part.astype(np.float32), hops=hops, latency_s=lat,
         window_wait_s=_window_waits(trace, t_idx, assignment, prim),
-        group_size=group_size, seeds=np.zeros((R, N), np.uint32),
-        weights=weights, edges=_edge_schedule(fl, assignment, prim))
+        group_size=group_size, seeds=seeds, weights=weights,
+        edges=_edge_schedule(fl, assignment, prim, keymgr))

@@ -1,5 +1,6 @@
 """Host-orchestrated sat-QFL rounds — paper Algorithm 1 (port of
-``repro.core.round``, modes ``qfl`` and ``sim`` under ``security="none"``).
+``repro.core.round``, modes ``qfl`` and ``sim``, security none, qkd and
+qkd_fernet).
 
 Roles, groups, weights and the exchange stages come from the compiled
 :class:`~repro_torch.core.plan.RoundPlan`; every transfer is accounted by
@@ -19,9 +20,22 @@ executors draw each (round, satellite) key from the same fold-in schedule
 as the JAX package and sample through the same bounded sampler, so they
 see identical batches; accounting is exactly equal between them.
 
+**Secure exchange (Algorithm 2).** Under ``security`` qkd / qkd_fernet
+every edge key is established in ONE batched BB84 when the plan compiles
+(the trainer's ``KeyManager`` rides along), and the plan's EdgeSchedule
+carries per-(round, edge) pad seeds, MAC keys, first-contact and abort
+masks. ``edge_batched=True`` (the default) runs each round stage as one
+secure dispatch over the stacked rows: the sender's XOR + MAC and the
+receiver's MAC + XOR are one launch each of the fused CUDA kernel
+(``kernels.otp_xor``). ``edge_batched=False`` keeps the per-edge oracle
+(``_exchange``), two launches of the kernel's stream entry per delivered
+edge. Both give bit-identical payloads and exactly equal accounting; QBER
+aborts surface per edge (``SecurityError.edges``, ``fl.on_qber_abort``
+raise or drop) and a MAC mismatch raises.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than run
-weaker: modes seq/async and secagg (ROADMAP queue 1, item 7), transport
-security (item 6), fault injection and checkpoints (item 8), and the
+weaker: modes seq/async and secagg (ROADMAP queue 1, item 7), fault
+injection and checkpoints (item 8), teleport security and the
 parameter-shift gradient (item 9).
 """
 from __future__ import annotations
@@ -40,10 +54,30 @@ from repro_torch.core.localtrain import (
 )
 from repro_torch.core.plan import RoundPlan, check_supported, compile_round_plan
 from repro_torch.device import resolve_device
+from repro_torch.kernels.otp_xor import ops as otp_ops
+from repro_torch.kernels.otp_xor.ref import as_storage
 from repro_torch.nn.optim import (
     constant_schedule, get_optimizer, inv_sqrt_schedule,
 )
-from repro_torch.nn.pytree import tree_bytes, tree_map, tree_weighted_sum
+from repro_torch.nn.pytree import (tree_bytes, tree_leaves, tree_map,
+                                   tree_weighted_sum)
+from repro_torch.security.errors import SecurityError
+from repro_torch.security.fernet_lite import (
+    TOKEN_OVERHEAD, InvalidToken, fernet_decrypt, fernet_decrypt_rows,
+    fernet_encrypt, fernet_encrypt_rows,
+)
+from repro_torch.security.keys import KeyManager, canonical_edge
+from repro_torch.security.otp import (tree_pad_u32, tree_pad_u32_rows,
+                                      tree_to_u32, tree_to_u32_rows,
+                                      u32_to_tree, u32_to_tree_rows)
+
+
+def _mac_rows_verify(sent_tags: torch.Tensor,
+                     received_tags: torch.Tensor) -> torch.Tensor:
+    """Receiver-side MAC check of a stage (or of one edge): the sender's
+    tags against the tags the receiver recomputed over what it received.
+    Module-level so tests can force a mismatch."""
+    return sent_tags == received_tags
 
 
 def evaluate(api, model_cfg, params, batch) -> tuple[float, float]:
@@ -83,7 +117,9 @@ class SatQFLTrainer:
     def __init__(self, model_cfg, api, fl: SatQFLConfig,
                  trace: ConstellationTrace, sat_data: list,
                  server_data: dict, comm: CommModel | None = None,
-                 batched: bool = True, device=None):
+                 eavesdrop_edges: frozenset = frozenset(),
+                 batched: bool = True, edge_batched: bool = True,
+                 device=None):
         self.device = dev = resolve_device(device)
         check_supported(fl)
         self.model_cfg = model_cfg
@@ -133,11 +169,24 @@ class SatQFLTrainer:
         self.log = CommLog()
         self.history: list[RoundMetrics] = []
 
+        self.keymgr = KeyManager(prng.PRNGKey(fl.seed + 7, dev),
+                                 n_qkd_bits=fl.qkd_bits,
+                                 eavesdrop_edges=eavesdrop_edges)
+        self._qkd_established: set = set()
+        self.aborted_edges: set = set()         # QBER aborts, per edge
+        # the edge-batched secure plane covers the OTP(+MAC) modes; the
+        # per-edge loop stays as the numerics/accounting oracle
+        self.edge_batched = (edge_batched
+                             and fl.security in ("qkd", "qkd_fernet"))
+
         self._local_train = make_local_train(api, model_cfg, fl, self.opt)
         self._batched_train = make_batched_local_train(api, model_cfg, fl,
                                                        self.opt)
-        self.plan: RoundPlan = compile_round_plan(trace, fl,
-                                                  sample_counts=counts)
+        # the whole schedule, with every edge key established in one
+        # batched BB84 when the exchange is secured
+        self.plan: RoundPlan = compile_round_plan(
+            trace, fl, sample_counts=counts,
+            keymgr=self.keymgr if fl.security != "none" else None)
 
     # ------------------------------------------------------------------
     # local training
@@ -221,27 +270,231 @@ class SatQFLTrainer:
         return loss, (hit * valid).sum(dim=1) / cnt
 
     # ------------------------------------------------------------------
-    # exchange accounting (security="none": the tensors never move)
+    # secure exchange (Algorithm 2) — returns params as seen by receiver
     # ------------------------------------------------------------------
-    def _exchange(self, params, edge: tuple, r: int, link: str,
-                  concurrent: int = 1):
-        """Per-edge exchange of the oracle: (params_as_received, wall_s)."""
-        nbytes = tree_bytes(params)
-        t = (self.comm.isl_transfer(nbytes, concurrent) if link == "isl"
-             else self.comm.feeder_transfer(nbytes, concurrent))
-        self.log.count_transfer(nbytes)   # wall time recorded per round
-        return params, t
+    def _transfer_s(self, nbytes: int, link: str, concurrent: int) -> float:
+        return (self.comm.isl_transfer(nbytes, concurrent) if link == "isl"
+                else self.comm.feeder_transfer(nbytes, concurrent))
 
-    def _exchange_rows(self, k: int, link: str, concurrents=None) -> list:
-        """Accounting of one stage of ``k`` row exchanges; returns the
-        per-edge walls in the oracle's order."""
-        walls = []
-        for c in concurrents or [1] * k:
-            walls.append(self.comm.isl_transfer(self._row_nbytes, c)
-                         if link == "isl"
-                         else self.comm.feeder_transfer(self._row_nbytes, c))
-            self.log.count_transfer(self._row_nbytes)
-        return walls
+    def _exchange(self, params, edge: tuple, round_idx: int, link: str,
+                  concurrent: int = 1):
+        """Per-edge Algorithm 2 — the numerics/accounting oracle of the
+        edge-batched plane. Returns (params_as_received, wall_s); params
+        is None when the edge QBER-aborted under on_qber_abort='drop'."""
+        fl = self.fl
+        nbytes = tree_bytes(params)
+        if fl.security == "none":
+            t = self._transfer_s(nbytes, link, concurrent)
+            self.log.count_transfer(nbytes)   # wall time recorded per round
+            return params, t
+
+        t = 0.0
+        ek = self.keymgr.get(edge)
+        if ek.edge not in self._qkd_established:
+            self._qkd_established.add(ek.edge)
+            tq = self.comm.qkd_time(fl.qkd_bits)
+            self.log.add_security(tq)
+            t += tq
+        if ek.compromised:
+            # eavesdropping detected at key establishment: the edge aborts
+            # BEFORE any data moves (nothing counted for this transfer)
+            self.aborted_edges.add(ek.edge)
+            if fl.on_qber_abort == "raise":
+                raise SecurityError(f"QBER abort on edge {ek.edge}",
+                                    edges=[ek.edge])
+            return None, t                    # drop: sat leaves C(t)
+
+        t += self._transfer_s(nbytes, link, concurrent)
+        self.log.count_transfer(nbytes)   # wall time recorded per round
+        seed = int(ek.round_seed(round_idx))
+        received = self._secure_edge(params, seed, *ek.mac_keys(round_idx),
+                                     ek.edge)
+        tc = 2 * self.comm.crypto_time(nbytes)
+        if fl.security == "qkd_fernet":
+            # control-plane metadata rides in a Fernet token keyed off the
+            # QKD seed (the paper's QKD+Fernet mode)
+            fkey = seed.to_bytes(4, "big") * 8
+            meta = f"edge={ek.edge} round={round_idx} n={nbytes}".encode()
+            tok = fernet_encrypt(fkey, meta)
+            if fernet_decrypt(fkey, tok) != meta:
+                raise SecurityError(f"Fernet token corrupt on edge {ek.edge}",
+                                    edges=[ek.edge])
+            tc += 2 * self.comm.crypto_time(len(tok))
+        self.log.add_security(tc)
+        return received, t + tc
+
+    def _secure_edge(self, params, seed: int, mac_r: int, mac_s: int,
+                     edge: tuple):
+        """One edge's payload through OTP + MAC, as two launches of the
+        fused kernel's stream entry: the sender encrypts and tags its
+        ciphertext, the receiver tags what it received and decrypts it."""
+        msg = as_storage(tree_to_u32(params))
+        pad = as_storage(tree_pad_u32(params, seed))
+        ct, tag = otp_ops.otp_xor_mac_stream(msg, pad, mac_r, mac_s)
+        plain, tag_rx = otp_ops.otp_xor_mac_stream(ct, pad, mac_r, mac_s,
+                                                   tag_input=True)
+        if self.fl.verify_mac and not bool(_mac_rows_verify(tag, tag_rx)):
+            raise SecurityError(f"MAC mismatch on edge {edge}", edges=[edge])
+        return u32_to_tree(plain, params)
+
+    def _secure_stage(self, stacked, seeds, mac_r, mac_s, tamper):
+        """ONE edge-batched Algorithm-2 dispatch over the frame's rows: the
+        sender's XOR + MAC and the receiver's MAC + XOR, one launch each of
+        the fused kernel. Rows without an edge carry seed 0 and pass
+        through bit-identically (XOR is an involution).
+
+        seeds/mac_r/mac_s/tamper: (K,) uint32 numpy. ``tamper`` is the
+        wire-corruption word per row (0 = clean; the fault plane sets it):
+        it flips the first RECEIVED word before the receiver's MAC, so a
+        tampered row fails verification, and is undone after decryption
+        so a dropped row keeps the sender's payload, as the JAX stage
+        decrypts the clean ciphertext. Returns (tree, ok (K,) bool or None
+        without MAC verification)."""
+        dev = self.device
+        seeds_t = torch.from_numpy(seeds.astype(np.int64)).to(dev)
+        keys = torch.from_numpy(
+            np.stack([mac_r, mac_s]).astype(np.uint32).view(np.int32)).to(dev)
+        msg = as_storage(tree_to_u32_rows(stacked))
+        pad = as_storage(tree_pad_u32_rows(stacked, seeds_t))
+        ct, tags = otp_ops.otp_xor_mac_rows(msg, pad, keys[0], keys[1])
+        flip = None
+        if tamper.any():
+            flip = torch.from_numpy(
+                tamper.astype(np.uint32).view(np.int32)).to(dev)
+            ct = ct.clone()
+            ct[:, 0] ^= flip
+        plain, tags_rx = otp_ops.otp_xor_mac_rows(ct, pad, keys[0], keys[1],
+                                                  tag_input=True)
+        if flip is not None:
+            plain[:, 0] ^= flip
+        ok = _mac_rows_verify(tags, tags_rx) if self.fl.verify_mac else None
+        return u32_to_tree_rows(plain, stacked), ok
+
+    def _exchange_rows_batched(self, stacked, rows, edges, r: int,
+                               stage: int, link: str, conc):
+        """Edge-batched Algorithm 2 for one round stage.
+
+        Key material, first-contact and abort masks come from the compiled
+        EdgeSchedule; the device work for ALL edges is one secure stage,
+        and the stage's Fernet control tokens are one batched call. The
+        scalar accounting walks edges in the exact per-edge-oracle order,
+        so comm/security totals are equal to the float.
+        """
+        fl = self.fl
+        es = self.plan.edges
+        lo, hi = es.stage_bounds(r, stage)
+        if hi - lo != len(edges):
+            raise RuntimeError(f"plan and engine disagree on stage "
+                               f"{(r, stage)}: {hi - lo} vs {len(edges)}")
+        nbytes = self._row_nbytes
+        tq = self.comm.qkd_time(fl.qkd_bits)
+        walls, delivered, fern = [], [], []
+        for j, edge in enumerate(edges):
+            e = es.edge_tuple(r, lo + j)
+            c = int(es.conc[r, lo + j])
+            plan_link = "feeder" if es.link[r, lo + j] else "isl"
+            if (e != canonical_edge(edge) or c != conc[j]
+                    or plan_link != link or int(es.born[r, lo + j]) != r):
+                raise RuntimeError(f"plan and engine disagree on edge {e} "
+                                   f"of stage {(r, stage)}")
+            t = 0.0
+            if es.first[r, lo + j]:
+                self._qkd_established.add(e)
+                self.log.add_security(tq)
+                t += tq
+            if es.abort[r, lo + j]:
+                self.aborted_edges.add(e)
+                if fl.on_qber_abort == "raise":
+                    raise SecurityError(f"QBER abort on edge {e}", edges=[e])
+                walls.append(t)
+                delivered.append(False)
+                continue
+            t += self._transfer_s(nbytes, link, c)
+            self.log.count_transfer(nbytes)
+            tc = 2 * self.comm.crypto_time(nbytes)
+            if fl.security == "qkd_fernet":
+                # the token's length is structural, so the accounting stays
+                # in the loop; the hashlib work is one batched call below
+                meta = f"edge={e} round={r} n={nbytes}".encode()
+                fern.append((e, int(es.seed[r, lo + j]), meta))
+                tc += 2 * self.comm.crypto_time(TOKEN_OVERHEAD + len(meta))
+            self.log.add_security(tc)
+            walls.append(t + tc)
+            delivered.append(True)
+
+        if fern:
+            fkeys = [seed.to_bytes(4, "big") * 8 for _, seed, _ in fern]
+            toks = fernet_encrypt_rows(fkeys, [m for _, _, m in fern])
+            try:
+                back = fernet_decrypt_rows(fkeys, toks)
+            except InvalidToken as err:
+                raise SecurityError(
+                    f"Fernet token corrupt in stage {(r, stage)}: {err}",
+                    edges=[e for e, _, _ in fern]) from err
+            bad = [e for (e, _, m), got in zip(fern, back) if got != m]
+            if bad:
+                raise SecurityError(f"Fernet token corrupt on edges {bad}",
+                                    edges=bad)
+
+        # device plane: one stage over the frame, row-aligned (rows without
+        # a delivered edge get seed 0 and pass through)
+        K = tree_leaves(stacked)[0].shape[0]
+        seeds, mr, ms, tam = (np.zeros((K,), np.uint32) for _ in range(4))
+        live_rows = []
+        for j, row in enumerate(rows):
+            if delivered[j]:
+                seeds[row] = es.seed[r, lo + j]
+                mr[row] = es.mac_r[r, lo + j]
+                ms[row] = es.mac_s[r, lo + j]
+                live_rows.append((row, edges[j]))
+        out, ok = self._secure_stage(stacked, seeds, mr, ms, tam)
+        if ok is not None and live_rows:
+            ok = ok.cpu().numpy()
+            bad = [canonical_edge(e) for row, e in live_rows if not ok[row]]
+            if bad:
+                raise SecurityError(f"MAC mismatch on edges {bad}",
+                                    edges=bad)
+        return out, walls, delivered
+
+    def _exchange_rows(self, stacked, rows: list[int], edges: list[tuple],
+                       r: int, stage: int, link: str, concurrents=None):
+        """Algorithm-2 exchange over rows of a stacked (K, ...) tree.
+
+        ``rows[j]`` is the stacked row carrying ``edges[j]``'s payload.
+        Returns (stacked, walls, delivered): delivered[j] is False for a
+        QBER-dropped edge, whose row passes through untouched and which
+        the caller masks out of aggregation. security='none' never touches
+        the tensors (accounting only); the OTP(+MAC) modes run one
+        edge-batched stage (``edge_batched=True``) or the per-edge oracle
+        on row slices — identical bits, identical accounting.
+        """
+        k = len(edges)
+        conc = concurrents or [1] * k
+        if self.fl.security == "none":
+            walls = []
+            for c in conc:
+                walls.append(self._transfer_s(self._row_nbytes, link, c))
+                self.log.count_transfer(self._row_nbytes)
+            return stacked, walls, [True] * k
+        if self.edge_batched:
+            return self._exchange_rows_batched(stacked, rows, edges, r,
+                                               stage, link, conc)
+        out_rows, walls, delivered = [], [], []
+        for j, (edge, c) in enumerate(zip(edges, conc)):
+            p_j = tree_map(lambda x: x[rows[j]], stacked)
+            p_j, t = self._exchange(p_j, edge, r, link, c)
+            delivered.append(p_j is not None)
+            out_rows.append(p_j)
+            walls.append(t)
+        live = [j for j in range(k) if delivered[j]]
+        if live:
+            # one gather-scatter, not one full-tree copy per row
+            idx = torch.tensor([rows[j] for j in live], device=self.device)
+            exchanged = tree_map(lambda *xs: torch.stack(xs),
+                                 *[out_rows[j] for j in live])
+            stacked = tree_map(lambda full, new: full.index_copy(0, idx, new),
+                               stacked, exchanged)
+        return stacked, walls, delivered
 
     # ------------------------------------------------------------------
     # aggregation
@@ -274,6 +527,8 @@ class SatQFLTrainer:
             p, t = self._exchange(p, (s, main), r, "isl",
                                   concurrent=max(len(secs), 1))
             up_walls.append(t)
+            if p is None:
+                continue            # QBER abort: the update is dropped
             collected.append(p)
             ws.append(self._weight_of(s))
         merged = (self._aggregate(collected, ws) if collected
@@ -288,15 +543,18 @@ class SatQFLTrainer:
         sp = self._frame
         p, _ = self._train_group_batched(secs_all,
                                          self._broadcast_global(sp), r)
-        walls = self._exchange_rows(
-            len(secs_all), "isl",
-            [max(len(groups[m]), 1) for m in mains for _ in groups[m]])
-        # masked weighted group reduction over the stacked client axis
+        conc = [max(len(groups[m]), 1) for m in mains for _ in groups[m]]
+        edges = [(s, m) for m in mains for s in groups[m]]
+        p, walls, delivered = self._exchange_rows(
+            p, list(range(len(secs_all))), edges, r, 0, "isl", conc)
+        # masked weighted group reduction over the stacked client axis;
+        # QBER-dropped rows carry no weight
         a = np.zeros((mp, sp), np.float32)
         j = 0
         for g, m in enumerate(mains):
             for s in groups[m]:
-                a[g, j] = self._weight_of(s)
+                if delivered[j]:
+                    a[g, j] = self._weight_of(s)
                 group_walls[g] = max(group_walls[g], walls[j])
                 j += 1
         row_sum = a.sum(axis=1, keepdims=True)
@@ -310,7 +568,7 @@ class SatQFLTrainer:
             return torch.where(k, g.to(torch.float32), m).to(x.dtype)
 
         merged = tree_map(_merge, p, self._broadcast_global(mp))
-        return merged, group_walls, [0.0], len(secs_all)
+        return merged, group_walls, [0.0], int(sum(delivered))
 
     # ------------------------------------------------------------------
     # round schedulers
@@ -322,21 +580,29 @@ class SatQFLTrainer:
         if self.batched:
             p, _ = self._train_group_batched(
                 ids, self._broadcast_global(self._frame), r)
-            walls = self._exchange_rows(len(ids), "feeder")
+            p, walls, delivered = self._exchange_rows(
+                p, list(range(len(ids))), [("gs", s) for s in ids], r, 0,
+                "feeder")
             self.log.add_wall(2 * max([0.0] + walls))
             w = np.zeros((self._frame,), np.float32)
-            w[:self.n_sats] = self.plan.weights
-            self.global_params = self._wmean_rows(p, w)
-            return len(ids)
+            for j, s in enumerate(ids):
+                if delivered[j]:
+                    w[j] = self.plan.weights[s]
+            if any(delivered):
+                self.global_params = self._wmean_rows(p, w)
+            return int(sum(delivered))
         updates, ws, walls = [], [], [0.0]
         for s in ids:
             p, _ = self._train_sat(s, self.global_params, r)
             p, t = self._exchange(p, ("gs", s), r, "feeder")
             walls.append(t)
+            if p is None:
+                continue            # QBER abort: the update is dropped
             updates.append(p)
             ws.append(self._weight_of(s))
         self.log.add_wall(2 * max(walls))   # up + broadcast down
-        self.global_params = self._aggregate(updates, ws)
+        if updates:
+            self.global_params = self._aggregate(updates, ws)
         return len(updates)
 
     def _round_hierarchical(self, r: int) -> int:
@@ -358,6 +624,8 @@ class SatQFLTrainer:
                 participants += 1
             merged, t = self._exchange(merged, (main, "gs"), r, "feeder")
             feeder_walls.append(t)
+            if merged is None:
+                continue        # feeder QBER abort: the group is lost
             main_models[g] = merged
             main_ws[g] = (self._weight_of(main)
                           + sum(self._weight_of(s) for s in secs))
@@ -389,13 +657,19 @@ class SatQFLTrainer:
         if self.fl.main_trains:
             merged, _ = self._train_group_batched(mains, merged, r)
             participants += len(mains)
-        feeder_walls = self._exchange_rows(len(mains), "feeder")
-        # pad rows carry zero weight, so the padded reduction is exact
+        feeder_stage = int(self.plan.edges.n_stages[r]) - 1
+        merged, feeder_walls, fdel = self._exchange_rows(
+            merged, list(range(len(mains))), [(m, "gs") for m in mains], r,
+            feeder_stage, "feeder")
+        # pad rows carry zero weight, so the padded reduction is exact;
+        # feeder-aborted mains contribute nothing (their group is lost)
         main_ws = np.zeros((mp,), np.float32)
         main_ws[:len(mains)] = [
-            self._weight_of(m) + sum(self._weight_of(s) for s in groups[m])
-            for m in mains]
-        self.global_params = self._wmean_rows(merged, main_ws)
+            (self._weight_of(m) + sum(self._weight_of(s) for s in groups[m]))
+            if fdel[g] else 0.0
+            for g, m in enumerate(mains)]
+        if any(fdel):
+            self.global_params = self._wmean_rows(merged, main_ws)
         self.log.add_wait(max([0.0] + group_waits))
         self.log.add_wall(max([0.0] + group_walls)
                           + 2 * max([0.0] + feeder_walls))

@@ -2,9 +2,11 @@
 
   statevec_gate — the fused single-qubit gate layer over batched
                   statevectors (the VQC's inner loop), in CUDA C++
+  otp_xor       — the fused OTP-XOR + GF(2^31 - 1) MAC over every edge
+                  stream of a secure-exchange stage, in CUDA C++
 
-Each package holds ``csrc/`` (the CUDA source), ``build.py`` (nvcc build
-and ctypes binding, at first use), ``ref.py`` (the plain PyTorch version)
-and ``ops.py`` (the wrapper: kernel on CUDA tensors, plain version on CPU
-tensors, autograd, launch count).
+Each package holds ``csrc/`` (the CUDA source), ``build.py`` (its ctypes
+binding; ``kernels/build.py`` compiles with nvcc at first use),
+``ref.py`` (the plain PyTorch version) and ``ops.py`` (the wrapper: kernel
+on CUDA tensors, plain version on CPU tensors, launch count).
 """

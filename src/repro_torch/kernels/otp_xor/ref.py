@@ -1,0 +1,66 @@
+"""Plain PyTorch versions of the fused OTP-XOR + MAC kernel.
+
+``otp_xor_mac_rows_ref`` is the function the CUDA kernel computes, on the
+same int32 bit storage of u32 words: the oracle the kernel is held against
+on the card and the CPU path of the wrapper. The block refs reproduce the
+TPU kernel's intermediate contract (``repro.kernels.otp_xor.ref``):
+per-(edge, block) partial tags over 128-lane blocks with a power table,
+on int64 u32 words.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.security.mac import P31, poly_mac_rows
+
+_M32 = 0xFFFFFFFF
+
+
+def as_words(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit storage (or int64 words) -> int64 u32 words."""
+    return x.to(torch.int64) & _M32
+
+
+def as_storage(words: torch.Tensor) -> torch.Tensor:
+    """int64 u32 words -> their int32 bit storage."""
+    words = words & _M32
+    return (words - ((words >> 31) << 32)).to(torch.int32)
+
+
+def otp_xor_mac_rows_ref(msg, pad, r_keys, s_keys, tag_input: bool = False):
+    """msg/pad (E, n) int32 storage, keys (E,) -> (ct (E, n), tags (E,)),
+    both int32 storage; tags cover ``msg`` if ``tag_input`` else ``ct``."""
+    m = as_words(msg)
+    ct = m ^ as_words(pad)
+    tags = poly_mac_rows(m if tag_input else ct, as_words(r_keys),
+                         as_words(s_keys))
+    return as_storage(ct), tags.to(torch.int32)
+
+
+def _block_tags(terms: torch.Tensor, lead: int) -> torch.Tensor:
+    """Modular sum of each block: terms (*lead, R, C) -> (*lead,)."""
+    return terms.flatten(lead).sum(dim=-1) % P31
+
+
+def _terms(ct, pw_lo, pw_hi):
+    lo = (ct & 0xFFFF) + 1
+    hi = (ct >> 16) + 1
+    return ((lo * pw_lo) % P31 + (hi * pw_hi) % P31) % P31
+
+
+def otp_xor_mac_edge_blocks_ref(msg, pad, powers):
+    """msg/pad (E, nb, R, C) words, powers (E, 2, R, C) ->
+    (ct, partial tags (E, nb)), int64 words."""
+    ct = as_words(msg) ^ as_words(pad)
+    pw = as_words(powers)
+    terms = _terms(ct, pw[:, None, 0], pw[:, None, 1])
+    return ct, _block_tags(terms, 2)
+
+
+def otp_xor_mac_blocks_ref(msg, pad, powers):
+    """msg/pad (nb, R, C) words, powers (2, R, C) ->
+    (ct, partial tags (nb,)), int64 words."""
+    ct = as_words(msg) ^ as_words(pad)
+    pw = as_words(powers)
+    terms = _terms(ct, pw[0][None], pw[1][None])
+    return ct, _block_tags(terms, 1)

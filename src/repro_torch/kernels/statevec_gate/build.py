@@ -1,56 +1,24 @@
-"""Build and bind the statevec_gate CUDA kernel.
-
-The source in ``csrc/`` is compiled on first use with ``nvcc`` into a
-shared library with a plain C interface (no PyTorch headers, so it builds
-in seconds), cached under ``build/repro_torch_kernels/`` at the root of
-the checkout by a hash of the source and the flags, and loaded with
-``ctypes``. Nothing is compiled or loaded when the module is imported.
-"""
+"""Build and bind the statevec_gate CUDA kernel (see ``kernels.build``)."""
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
+from repro_torch.kernels import build as kbuild
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "statevec_gate.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the statevec_gate CUDA kernel "
-                           "is built from source on the machine with the GPU")
-    return path
 
 
 def build() -> Path:
     """Compile the kernel library unless a build of this source exists."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libstatevec_gate_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{res.stderr}")
-    os.replace(tmp, lib)        # atomic: concurrent builders never see half
-    return lib
+    return kbuild.build(SOURCE)[0]
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build()))
+    lib = kbuild.load(SOURCE)
     fn = lib.statevec_gate_layer
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_void_p]

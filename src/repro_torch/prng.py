@@ -46,6 +46,14 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
                         device=resolve_device(device))
 
 
+def key_u32(seed_u32) -> torch.Tensor:
+    """``jax.random.key(seed_u32)`` for a uint32 seed or a tensor of them:
+    the words (0, seed), the same as ``PRNGKey(seed)``. A tensor seed of
+    shape (...) gives keys (..., 2) on the seed's device."""
+    s = torch.as_tensor(seed_u32, dtype=torch.int64) & _M32
+    return torch.stack([torch.zeros_like(s), s], dim=-1)
+
+
 def _iota(key: torch.Tensor, shape: tuple) -> tuple:
     """(hi, lo) words of the row-major 64-bit iota over ``shape``, shaped
     to broadcast after the key's batch dims."""
@@ -101,6 +109,12 @@ def uniform(key: torch.Tensor, shape: tuple, minval=0.0,
     # to float32 reproduces it
     fma = (f.double() * (hi - lo).double() + lo.double()).to(torch.float32)
     return torch.maximum(lo, fma)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: tuple) -> torch.Tensor:
+    """``jax.random.bernoulli`` (float32 ``p``): ``uniform < p``, as bool."""
+    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32,
+                                              device=key.device)
 
 
 def _mulmod32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

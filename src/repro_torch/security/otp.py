@@ -1,0 +1,229 @@
+"""OTP (x ⊕ K) over parameter trees — paper Algorithm 2 step 4 (port of
+``repro.security.otp``, its OTP and wire-format half).
+
+Every leaf is bit-viewed as unsigned words (32-bit leaves as u32, bf16,
+f16 and i16 leaves as u16) and XORed with a pad stream expanded by the
+threefry PRF from a QKD-derived 32-bit seed. Decryption is the same XOR.
+The pad key of leaf i is ``fold_in(key(seed), i)`` with leaves in
+``jax.tree_util`` order (dict keys sorted), so the stream never repeats
+across leaves; the round is folded into the seed by the key schedule, so
+pads never repeat across rounds.
+
+torch has no uint32 arithmetic: words are held in int64 tensors masked to
+32 bits (u16 words to 16). The wire view (``tree_to_u32``) packs u16
+leaves two to a word, low half first, with a zero half-word after an odd
+length. ``tree_pad_u32(_rows)`` gives the pads in that same wire layout,
+so ``tree_to_u32(encrypt_tree(t, s)) == tree_to_u32(t) ^ tree_pad_u32(t, s)``
+— the form the fused XOR + MAC kernel consumes.
+
+The secagg half of the JAX module (``tree_to_q32`` … ``secagg_mask_stream``)
+comes with ROADMAP queue 1, item 7.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch import prng
+from repro_torch.device import resolve_device
+from repro_torch.nn.pytree import tree_leaves
+
+_M32 = 0xFFFFFFFF
+
+#: leaf dtype -> (same-width signed integer view, word width in bits)
+_BITCAST = {
+    torch.float32: (torch.int32, 32),
+    torch.int32: (torch.int32, 32),
+    torch.bfloat16: (torch.int16, 16),
+    torch.float16: (torch.int16, 16),
+    torch.int16: (torch.int16, 16),
+}
+
+
+def _width(dtype) -> int:
+    if dtype not in _BITCAST:
+        raise TypeError(f"no OTP bit view for leaf dtype {dtype}")
+    return _BITCAST[dtype][1]
+
+
+def _to_words(leaf: torch.Tensor) -> torch.Tensor:
+    """Leaf -> its unsigned words (int64, masked to the leaf's width)."""
+    view, width = _BITCAST[leaf.dtype]
+    return leaf.contiguous().view(view).to(torch.int64) & ((1 << width) - 1)
+
+
+def _from_words(words: torch.Tensor, dtype) -> torch.Tensor:
+    """Unsigned words (int64) -> a leaf of ``dtype`` with those bits."""
+    view, width = _BITCAST[dtype]
+    signed = words - ((words >> (width - 1)) << width)   # two's complement
+    return signed.to(view).view(dtype)
+
+
+def _unflatten(tree, leaves: list):
+    """Rebuild ``tree``'s structure from leaves in flatten order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*[build(x) for x in t])
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    return build(tree)
+
+
+# ---------------------------------------------------------------------------
+# pads and encryption
+# ---------------------------------------------------------------------------
+
+def _seed_keys(seeds, device) -> torch.Tensor:
+    return prng.key_u32(torch.as_tensor(seeds, dtype=torch.int64,
+                                        device=device))
+
+
+def pad_u32(seed_u32, n: int, device=None) -> torch.Tensor:
+    """n pad words (int64 u32) from a 32-bit seed (threefry expansion), on
+    the seed tensor's device, or on ``device`` for an int seed."""
+    dev = (seed_u32.device if isinstance(seed_u32, torch.Tensor)
+           else resolve_device(device))
+    return prng.bits(_seed_keys(seed_u32, dev), (n,))
+
+
+def pad_u32_rows(seeds_u32: torch.Tensor, n: int) -> torch.Tensor:
+    """(E,) seeds -> (E, n) pad words; row e == ``pad_u32(seeds[e], n)``."""
+    return prng.bits(_seed_keys(seeds_u32, seeds_u32.device), (n,))
+
+
+def _leaf_pads(leaves: list, base: torch.Tensor, lead: int) -> list:
+    """Per-leaf pad words shaped like each leaf: leaf i draws its own
+    width's bits under ``fold_in(base, i)``; ``lead`` leading dims of each
+    leaf are key-batch dims (0 for one tree, 1 for stacked rows)."""
+    pads = []
+    for i, leaf in enumerate(leaves):
+        width = _width(leaf.dtype)
+        b = prng.bits(prng.fold_in(base, i), tuple(leaf.shape[lead:]))
+        pads.append(b & 0xFFFF if width == 16 else b)
+    return pads
+
+
+def _encrypt(tree, seeds, lead: int):
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return tree
+    base = _seed_keys(seeds, leaves[0].device)
+    out = [_from_words(_to_words(leaf) ^ pad, leaf.dtype)
+           for leaf, pad in zip(leaves, _leaf_pads(leaves, base, lead))]
+    return _unflatten(tree, out)
+
+
+def encrypt_tree(tree, seed_u32):
+    """OTP-encrypt every leaf of a tree. Involution: decrypt == encrypt."""
+    return _encrypt(tree, seed_u32, 0)
+
+
+def decrypt_tree(tree, seed_u32):
+    return encrypt_tree(tree, seed_u32)       # XOR is an involution
+
+
+def encrypt_tree_rows(tree, seeds_u32):
+    """OTP-encrypt every row of a stacked tree: leaves (E, ...), seeds
+    (E,). Row e is bit-identical to ``encrypt_tree(row_e, seeds[e])``."""
+    return _encrypt(tree, seeds_u32, 1)
+
+
+def decrypt_tree_rows(tree, seeds_u32):
+    return encrypt_tree_rows(tree, seeds_u32)  # XOR is an involution
+
+
+# ---------------------------------------------------------------------------
+# tree <-> flat u32 wire view (the stream the MAC covers)
+# ---------------------------------------------------------------------------
+
+def _pack(words: list, widths: list, lead: tuple) -> torch.Tensor:
+    """Concatenate per-leaf words (lead + (n_i,)) into u32 wire words:
+    u16 words pack two to a word, low half first, odd length zero-padded."""
+    out = []
+    for w, width in zip(words, widths):
+        w = w.reshape(lead + (-1,))
+        if width == 16:
+            if w.shape[-1] % 2:
+                w = torch.cat([w, w.new_zeros(lead + (1,))], dim=-1)
+            w = w[..., 0::2] | (w[..., 1::2] << 16)
+        out.append(w)
+    if not out:
+        return torch.zeros(lead + (0,), dtype=torch.int64)
+    return torch.cat(out, dim=-1)
+
+
+def _unpack(vec: torch.Tensor, like_leaves: list, lead: int) -> list:
+    out, off = [], 0
+    for leaf in like_leaves:
+        shape = tuple(leaf.shape[lead:])
+        n = math.prod(shape)
+        if _width(leaf.dtype) == 16:
+            n_words = (n + 1) // 2
+            w = vec[..., off:off + n_words]
+            u = torch.stack([w & 0xFFFF, w >> 16], dim=-1).flatten(-2)
+            u = u[..., :n]
+            off += n_words
+        else:
+            u = vec[..., off:off + n]
+            off += n
+        out.append(_from_words(u.reshape(vec.shape[:-1] + shape),
+                               leaf.dtype))
+    return out
+
+
+def tree_to_u32(tree) -> torch.Tensor:
+    """All leaves as one flat (n,) stream of u32 words (int64)."""
+    leaves = tree_leaves(tree)
+    return _pack([_to_words(x) for x in leaves],
+                 [_width(x.dtype) for x in leaves], ())
+
+
+def tree_to_u32_rows(tree) -> torch.Tensor:
+    """Stacked wire view: leaves (E, ...) -> (E, W) words; row e equals
+    ``tree_to_u32`` of row e."""
+    leaves = tree_leaves(tree)
+    lead = (leaves[0].shape[0],) if leaves else (0,)
+    return _pack([_to_words(x) for x in leaves],
+                 [_width(x.dtype) for x in leaves], lead)
+
+
+def _u32(vec: torch.Tensor) -> torch.Tensor:
+    """Wire words as int64 u32, from int64 or from int32 bit storage."""
+    return vec.to(torch.int64) & _M32
+
+
+def u32_to_tree(vec: torch.Tensor, like):
+    """Inverse of ``tree_to_u32`` given a structural template; ``vec`` is
+    int64 u32 words or their int32 bit storage."""
+    return _unflatten(like, _unpack(_u32(vec), tree_leaves(like), 0))
+
+
+def u32_to_tree_rows(vec: torch.Tensor, like):
+    """Inverse of ``tree_to_u32_rows`` given a stacked template."""
+    return _unflatten(like, _unpack(_u32(vec), tree_leaves(like), 1))
+
+
+def tree_pad_u32(like, seed_u32) -> torch.Tensor:
+    """The pads ``encrypt_tree(like, seed)`` XORs in, in the wire layout
+    of ``tree_to_u32(like)`` (the u16 padding half-word gets pad 0)."""
+    leaves = tree_leaves(like)
+    base = _seed_keys(seed_u32, leaves[0].device)
+    return _pack(_leaf_pads(leaves, base, 0),
+                 [_width(x.dtype) for x in leaves], ())
+
+
+def tree_pad_u32_rows(like, seeds_u32) -> torch.Tensor:
+    """Row form of ``tree_pad_u32``: stacked template, (E,) seeds ->
+    (E, W) pad words in the layout of ``tree_to_u32_rows(like)``."""
+    leaves = tree_leaves(like)
+    base = _seed_keys(seeds_u32, leaves[0].device)
+    return _pack(_leaf_pads(leaves, base, 1),
+                 [_width(x.dtype) for x in leaves], (leaves[0].shape[0],))

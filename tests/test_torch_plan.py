@@ -7,6 +7,7 @@ ulp at LEO radii), and so is the plan compiled from it.
 """
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 
@@ -17,15 +18,19 @@ from repro.core import CommLog as JaxCommLog
 from repro.core import CommModel as JaxCommModel
 from repro.core import SatQFLConfig as JaxConfig
 from repro.core.plan import compile_round_plan as jax_compile
+from repro.security.keys import KeyManager as JaxKeyManager
+from repro.security.keys import canonical_edge
+from repro_torch import prng
 from repro_torch.constellation import ConstellationTrace, build_trace
 from repro_torch.core import CommLog, CommModel, SatQFLConfig
 from repro_torch.core.plan import compile_round_plan
+from repro_torch.security.keys import KeyManager
 
 TRACE_ARGS = dict(n_sats=12, n_planes=4, duration_s=1800, step_s=60)
 PLAN_FIELDS = ("t_idx", "primary_mask", "assignment", "part_mask", "hops",
                "latency_s", "window_wait_s", "group_size", "seeds", "weights")
 EDGE_FIELDS = ("n_stages", "ptr", "src", "dst", "link", "conc", "mask",
-               "first", "born")
+               "first", "born", "abort", "seed", "mac_r", "mac_s")
 
 
 @pytest.fixture(scope="module")
@@ -49,8 +54,10 @@ def _assert_plans_equal(pt, pj, latency_rtol=0.0):
         np.testing.assert_allclose(a, b, rtol=latency_rtol if f == "latency_s"
                                    else 0.0, atol=0, err_msg=f)
     for f in EDGE_FIELDS:
-        np.testing.assert_array_equal(getattr(pt.edges, f),
-                                      getattr(pj.edges, f), err_msg=f)
+        a, b = getattr(pt.edges, f), getattr(pj.edges, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    assert pt.edges.with_keys == pj.edges.with_keys
     for r in range(pt.n_rounds):
         assert pt.groups(r) == pj.groups(r)
         assert pt.unreachable(r) == pj.unreachable(r)
@@ -105,12 +112,50 @@ def test_config_rejections_match(bad):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mode="seq"), "item 7"), (dict(mode="async"), "item 7"),
-    (dict(security="qkd"), "item 6"),
+    (dict(security="teleport"), "item 9"),
     (dict(mode="async", agg_security="secagg"), "item 7"),
     (dict(crash_rate=0.1), "item 8"), (dict(link_flap_rate=0.1), "item 8")])
 def test_plan_refuses_what_is_not_ported(traces, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         compile_round_plan(traces[1], SatQFLConfig(n_rounds=2, **kw))
+
+
+# every edge touching satellites 0-2 eavesdropped, as in
+# tests/test_batched_security.py
+EAV = frozenset(canonical_edge((a, b)) for a in range(3)
+                for b in list(range(12)) + ["gs"] if a != b)
+
+
+@pytest.mark.parametrize("eav", [frozenset(), EAV], ids=["clean", "eav"])
+@pytest.mark.parametrize("mode", ["qfl", "sim"])
+def test_keyed_edge_schedule_matches_jax(traces, mode, eav):
+    """seed, mac_r, mac_s, first and abort of every (round, edge), keyed
+    by the trainer's registry (one batched BB84), equal to the JAX plan's."""
+    jt, _ = traces
+    fl = dict(mode=mode, n_rounds=4, security="qkd")
+    pj = jax_compile(jt, JaxConfig(**fl), with_seeds=False,
+                     keymgr=JaxKeyManager(jax.random.PRNGKey(7),
+                                          eavesdrop_edges=eav))
+    pt = compile_round_plan(_as_port_trace(jt), SatQFLConfig(**fl),
+                            keymgr=KeyManager(prng.PRNGKey(7, "cpu"),
+                                              eavesdrop_edges=eav))
+    _assert_plans_equal(pt, pj)
+    es = pt.edges
+    assert es.with_keys and es.abort.any() == bool(eav)
+    assert not es.abort[~es.mask].any()
+
+
+@pytest.mark.parametrize("mode", ["qfl", "sim"])
+def test_seed_schedule_matches_jax(traces, mode):
+    """with_seeds: the per-(round, satellite) uplink seeds from a registry
+    made from fl.seed, equal to the JAX plan's default."""
+    jt, _ = traces
+    fl = dict(mode=mode, n_rounds=3, security="qkd", seed=3)
+    pj = jax_compile(jt, JaxConfig(**fl))
+    pt = compile_round_plan(_as_port_trace(jt), SatQFLConfig(**fl),
+                            with_seeds=True, device="cpu")
+    assert pt.seeds.any()
+    _assert_plans_equal(pt, pj)
 
 
 def test_comm_model_and_log_match():

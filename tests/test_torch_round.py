@@ -5,6 +5,13 @@ Per-round val loss ≤ 1e-5, accuracies within one sample, and accounting
 qfl and sim. The port's batched executor is also held against its own
 per-client oracle. One module-scoped fixture builds the trace and data
 and runs the JAX trainers once.
+
+The secure exchange (security qkd / qkd_fernet) runs on the JAX security
+tests' fixture (12 satellites, 4 qubits, 1 layer): per-round metrics
+within 1e-6 of the JAX trainer, accounting and QBER-abort sets exactly
+equal, the port's edge-batched plane bit-exact against its per-edge
+oracle, and the raise paths (QBER abort, MAC mismatch) raising
+``SecurityError`` with the failing edges.
 """
 import dataclasses
 
@@ -13,16 +20,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import repro_torch.core.round as round_mod
 from repro.constellation import build_trace
 from repro.core import SatQFLConfig as JaxConfig
 from repro.core import SatQFLTrainer as JaxTrainer
 from repro.data import dirichlet_partition, make_statlog, server_split
 from repro.models import get_config as jax_get_config
 from repro.models import get_model as jax_get_model
+from repro.security.keys import canonical_edge
 from repro_torch import data as tdata
 from repro_torch.constellation import ConstellationTrace
 from repro_torch.core import SatQFLConfig, SatQFLTrainer
 from repro_torch.models import get_config, get_model
+from repro_torch.security import SecurityError
 
 N_SATS = 8
 SMALL = dict(vqc_qubits=4, vqc_layers=2, n_features=4)
@@ -111,7 +121,7 @@ def test_batched_matches_per_client_oracle(world, mode):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mode="seq"), "item 7"), (dict(security="qkd"), "item 6"),
+    (dict(mode="seq"), "item 7"), (dict(security="teleport"), "item 9"),
     (dict(straggler_rate=0.2), "item 8"),
     (dict(grad_method="param_shift"), "item 9")])
 def test_trainer_refuses_what_is_not_ported(world, kw, item):
@@ -125,3 +135,161 @@ def test_checkpoints_refused(world):
     tr = port("qfl", n_rounds=1)
     with pytest.raises(NotImplementedError, match="item 8"):
         tr.run(ckpt_dir="unused")
+
+
+# ---------------------------------------------------------------------------
+# the secure exchange plane (Algorithm 2)
+# ---------------------------------------------------------------------------
+
+SEC_SATS = 12
+SEC_SMALL = dict(vqc_qubits=4, vqc_layers=1, n_features=4)
+SEC_FL = dict(n_rounds=2, local_steps=2, batch_size=8)
+SECURE = [("sim", "qkd"), ("qfl", "qkd"), ("sim", "qkd_fernet")]
+# every edge touching satellites 0-2 eavesdropped (tests/
+# test_batched_security.py:_eav_subset)
+EAV = frozenset(canonical_edge((a, b)) for a in range(3)
+                for b in list(range(SEC_SATS)) + ["gs"] if a != b)
+
+
+@pytest.fixture(scope="module")
+def secure_world():
+    """The JAX runs of every secure case once, and a cached port runner."""
+    jtrace = build_trace(n_sats=SEC_SATS, n_planes=4, duration_s=1800,
+                         step_s=60)
+    trace = ConstellationTrace(**{f.name: getattr(jtrace, f.name)
+                                  for f in dataclasses.fields(
+                                      ConstellationTrace)})
+    cfg_j = jax_get_config("vqc-satqfl").replace(**SEC_SMALL)
+    X, y = make_statlog(n_features=4)
+    Xc, yc, server = server_split(X, y)
+    sats = dirichlet_partition(Xc, yc, SEC_SATS)
+    cases = [(m, s, frozenset(), "raise") for m, s in SECURE] + [
+        (m, "qkd", EAV, "drop") for m in ("sim", "qfl")]
+    jax_runs = {}
+    for mode, sec, eav, abort in cases:
+        tr = JaxTrainer(cfg_j, jax_get_model(cfg_j),
+                        JaxConfig(mode=mode, security=sec,
+                                  on_qber_abort=abort, **SEC_FL),
+                        jtrace, sats, server, eavesdrop_edges=eav)
+        tr.run()
+        jax_runs[(mode, sec, eav)] = tr
+    cfg = get_config("vqc-satqfl").replace(**SEC_SMALL)
+    tX, ty = tdata.make_statlog(n_features=4, device="cpu")
+    tXc, tyc, tserver = tdata.server_split(tX, ty)
+    tsats = tdata.dirichlet_partition(tXc, tyc, SEC_SATS)
+    cache = {}
+
+    def make(mode, security, eav=frozenset(), edge_batched=True,
+             batched=True, **kw):
+        fl = SatQFLConfig(mode=mode, security=security, **{**SEC_FL, **kw})
+        return SatQFLTrainer(cfg, get_model(cfg), fl, trace, tsats, tserver,
+                             eavesdrop_edges=eav, batched=batched,
+                             edge_batched=edge_batched, device="cpu")
+
+    def port(mode, security, eav=frozenset(), edge_batched=True,
+             batched=True):
+        key = (mode, security, eav, edge_batched, batched)
+        if key not in cache:
+            tr = make(mode, security, eav, edge_batched, batched,
+                      on_qber_abort="drop" if eav else "raise")
+            tr.run()
+            cache[key] = tr
+        return cache[key]
+
+    return jax_runs, port, make
+
+
+def _assert_bit_equal(a, b):
+    for k in a:
+        assert torch.equal(a[k].view(torch.int32), b[k].view(torch.int32)), k
+
+
+@pytest.mark.parametrize("mode,security", SECURE)
+def test_secure_trainer_matches_jax(secure_world, mode, security):
+    jax_runs, port, _ = secure_world
+    jt, tt = jax_runs[(mode, security, frozenset())], port(mode, security)
+    assert tt.edge_batched and tt.log.security_s > 0
+    _assert_accounting_equal(tt, jt)
+    assert tt.aborted_edges == jt.aborted_edges == set()
+    for mt, mj in zip(tt.history, jt.history):
+        for f in ("server_val_loss", "dev_val_loss", "server_val_acc",
+                  "server_test_acc", "dev_train_acc"):
+            np.testing.assert_allclose(getattr(mt, f), getattr(mj, f),
+                                       atol=1e-6, err_msg=f)
+    for k, v in tt.global_params.items():
+        np.testing.assert_allclose(v.numpy(), np.asarray(jt.global_params[k]),
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("mode,security", SECURE)
+def test_edge_batched_matches_per_edge_oracle(secure_world, mode, security):
+    """One secure stage per dispatch == one exchange per edge, to the bit;
+    and the exchange is transparent (== the same run without security)."""
+    _, port, make = secure_world
+    tb, to = port(mode, security), port(mode, security, edge_batched=False)
+    assert not to.edge_batched
+    _assert_accounting_equal(tb, to)
+    _assert_bit_equal(tb.global_params, to.global_params)
+    plain = make(mode, "none")
+    plain.run()
+    _assert_bit_equal(tb.global_params, plain.global_params)
+
+
+@pytest.mark.parametrize("mode", ["sim", "qfl"])
+def test_qber_drop_matches_jax(secure_world, mode):
+    """Eavesdropped edges abort in drop mode: the same edge set as the JAX
+    trainer, on both of the port's planes and its per-client oracle, with
+    exactly equal accounting."""
+    jax_runs, port, _ = secure_world
+    jt = jax_runs[(mode, "qkd", EAV)]
+    runs = [port(mode, "qkd", EAV, eb, b)
+            for eb, b in ((True, True), (False, True), (False, False))]
+    assert jt.aborted_edges and jt.aborted_edges <= EAV
+    for tr in runs:
+        assert tr.aborted_edges == jt.aborted_edges
+        _assert_accounting_equal(tr, jt)
+    for mt, mj in zip(runs[0].history, jt.history):
+        np.testing.assert_allclose(mt.server_val_loss, mj.server_val_loss,
+                                   atol=1e-6)
+    _assert_bit_equal(runs[0].global_params, runs[1].global_params)
+
+
+@pytest.mark.parametrize("edge_batched", [True, False])
+def test_qber_abort_raise_mode(secure_world, edge_batched):
+    _, _, make = secure_world
+    eav = frozenset((s, m) for s in range(SEC_SATS) for m in range(SEC_SATS))
+    tr = make("sim", "qkd", eav, edge_batched, n_rounds=1)
+    with pytest.raises(SecurityError) as ei:
+        tr.run_round(0)
+    assert isinstance(ei.value, ConnectionAbortedError)
+    assert len(ei.value.edges) == 1 and ei.value.edges[0] in tr.aborted_edges
+
+
+@pytest.mark.parametrize("edge_batched", [True, False])
+def test_mac_mismatch_raises(secure_world, monkeypatch, edge_batched):
+    """A receiver whose MAC check fails raises SecurityError naming the
+    edges (never an assert, which python -O would strip)."""
+    _, _, make = secure_world
+    monkeypatch.setattr(round_mod, "_mac_rows_verify",
+                        lambda sent, received: torch.zeros_like(
+                            sent, dtype=torch.bool))
+    tr = make("sim", "qkd", edge_batched=edge_batched, n_rounds=1)
+    with pytest.raises(SecurityError) as ei:
+        tr.run_round(0)
+    assert ei.value.edges
+
+
+def test_secure_stage_rejects_a_tampered_row(secure_world):
+    """A wire-corruption word on a row fails that row's MAC only, and the
+    row still comes back as the sender's payload (so a dropped row stays
+    finite in the masked reduction), as the JAX stage decrypts the clean
+    ciphertext."""
+    _, _, make = secure_world
+    tr = make("sim", "qkd", n_rounds=1)
+    stacked = tr._broadcast_global(4)
+    seeds = np.asarray([5, 6, 7, 0], np.uint32)
+    mac = np.asarray([11, 12, 13, 14], np.uint32)
+    tamper = np.asarray([0, 0x80000000, 0, 1], np.uint32)
+    out, ok = tr._secure_stage(stacked, seeds, mac, mac[::-1].copy(), tamper)
+    assert ok.tolist() == [True, False, True, False]
+    _assert_bit_equal(out, stacked)
