@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with one CUDA card. It builds
-the hand-written CUDA kernels from the sources in the checkout (one nvcc
-per source, all at once) and then:
+the four hand-written CUDA sources in the checkout (one nvcc per source,
+all at once) and then:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, and the kernels' build time;
@@ -36,7 +36,34 @@ per source, all at once) and then:
    1e-4 and the accounting exactly equal; and one drop-mode round with
    forced eavesdroppers on both, whose aborted edges must agree;
 6. profiles one warm secure sim round with ``torch.profiler`` and prints
-   the device-busy share and the kernels that take the most device time.
+   the device-busy share and the kernels that take the most device time;
+7. holds the sliding-window attention kernel against its plain version
+   (f32 ≤ 2e-5; bf16 within one bf16 step of each element, see
+   ``_bf16_steps``) at hymba-1.5b's prefill shape (4, 2048,
+   25 heads over 5 kv heads, hd 64) at W=1024 and W=0 in bf16 and f32,
+   qwen3-0.6b's hd 128 with GQA 16/8, and S=1000 with W=100, W > S and
+   S=1; times the kernel (CUDA events and profiler), the plain version and
+   SDPA with a boolean band mask (the library yardstick, used nowhere in
+   the port) at hymba's shape, where SDPA and the XLA path's bf16 softmax
+   (``blocks._sdpa_core``) must fail the bf16 limit;
+8. holds the SSD scan kernel against its plain version (y and state
+   ≤ 3e-5 in f32; y within one bf16 step of each element in bf16, which
+   the plain version fed dt rounded to bf16 must fail) at hymba's (4,
+   2048, 50 heads, P 64, N 16), mamba2-130m's N=128, two B/C groups and
+   S=1000 (chunk 125), and once from a given initial state; times it at
+   hymba's shape;
+9. serves hymba-1.5b at full width and depth in bf16 from random weights:
+   one ``make_prefill_step`` over 4 requests x 2048 tokens and
+   ``generate`` for 4 requests of 16 prompt tokens and 32 new ones, the
+   launch counts set to 0 just before each and read just after (the
+   prefill must launch each kernel 32 times, 29 + 3 attention launches at
+   W=1024 and W=0; decode neither), with prefill and decode rates, peak
+   device memory and a profile of one prefill;
+10. cross-checks the serving path in f32 at full width: forward vs
+   decode-stepped logits over 64 tokens (rel < 2e-3), the full-depth
+   prefill's next-token logits with the kernels vs their plain versions
+   (rel ≤ 1e-4, TF32 off), and a 2-layer prefill of 2 x 256 tokens on
+   the CPU vs the card (rel ≤ 1e-4).
 
 It prints one ``{"kernels": [...]}`` line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -45,6 +72,7 @@ non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -111,12 +139,17 @@ def _kernel_device_ms(torch, fn, kernel_name: str, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == DeviceType.CUDA
-              and kernel_name in e.key]
-    count = sum(e.count for e in events)
-    total_us = sum(_dev_us(e) for e in events)
-    return total_us / count / 1e3 if count and total_us > 0 else None
+    device = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA]
+    ms = _ms_per_launch(device, kernel_name)
+    if ms is not None:
+        return ms
+    # the profiler has come back without the kernel's records in some runs
+    # on an H100 (while a later profile of the prefill had them): say what
+    # it did record
+    print(f"profile of {kernel_name}: no device time; device records: "
+          + json.dumps([(e.key[:60], e.count, _dev_us(e)) for e in device]))
+    return None
 
 
 def _random_layer(torch, G, S, nq, seed):
@@ -319,17 +352,24 @@ TRAINER_PATHS = {
 }
 
 
-def _counts(sv_ops, otp_ops) -> dict:
-    return {"statevec_gate_layer": sv_ops.LAUNCHES, **otp_ops.LAUNCHES}
+def _counts(kops) -> dict:
+    """Every kernel's launch count: ``kops`` holds the ops modules of the
+    gate-layer, OTP, attention and SSD kernels."""
+    sv_ops, otp_ops, swa_ops, ssd_ops = kops
+    return {"statevec_gate_layer": sv_ops.LAUNCHES, **otp_ops.LAUNCHES,
+            "swa_attention": swa_ops.LAUNCHES, "ssd_scan": ssd_ops.LAUNCHES}
 
 
-def _reset(sv_ops, otp_ops):
-    sv_ops.LAUNCHES = 0
+def _reset(kops):
+    """Sets every kernel's launch count to 0."""
+    sv_ops, otp_ops, swa_ops, ssd_ops = kops
+    sv_ops.LAUNCHES = swa_ops.LAUNCHES = ssd_ops.LAUNCHES = 0
+    swa_ops.LAUNCHES_BY_WINDOW.clear()
     for k in otp_ops.LAUNCHES:
         otp_ops.LAUNCHES[k] = 0
 
 
-def phase_trainer(torch, sv_ops, otp_ops, trace, sats, server):
+def phase_trainer(torch, kops, trace, sats, server):
     """Every trainer path of the port at full width; counts each path's
     launches of each kernel, set to 0 just before the path and read just
     after. Holds the edge-batched secure plane against its per-edge
@@ -349,9 +389,9 @@ def phase_trainer(torch, sv_ops, otp_ops, trace, sats, server):
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         rounds = []
-        _reset(sv_ops, otp_ops)
+        _reset(kops)
         for r in range(n_rounds):
-            before = _counts(sv_ops, otp_ops)
+            before = _counts(kops)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             m = tr.run_round(r)
@@ -360,7 +400,7 @@ def phase_trainer(torch, sv_ops, otp_ops, trace, sats, server):
             rounds.append({
                 "round": r, "seconds": dt,
                 "launches": {k: v - before[k] for k, v in
-                             _counts(sv_ops, otp_ops).items()},
+                             _counts(kops).items()},
                 "val_loss": m.server_val_loss, "val_acc": m.server_val_acc,
                 "participants": m.participants, "comm_s": m.comm_s,
                 "security_s": m.security_s})
@@ -369,7 +409,7 @@ def phase_trainer(torch, sv_ops, otp_ops, trace, sats, server):
                     and m.server_val_loss < 10.0):
                 raise PhaseError(f"{path} round {r}: val loss "
                                  f"{m.server_val_loss}")
-        launches[path] = _counts(sv_ops, otp_ops)
+        launches[path] = _counts(kops)
         needed = ["statevec_gate_layer"] + (
             [] if security == "none" else
             ["otp_xor_mac_edges" if edge_batched else "otp_xor_mac"])
@@ -490,6 +530,444 @@ def phase_profile(torch, trace, sats, server):
                  "count": e.count} for e in top]}))
 
 
+# --------------------------------------------------------------------------
+# The serving path: hymba-1.5b with kernels #6 (swa_attention) and
+# #7 (ssd_scan)
+# --------------------------------------------------------------------------
+
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
+SWA_SOURCE = "src/repro_torch/kernels/swa_attention/csrc/swa_attention.cu"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SWA_TOL = 2e-5                 # float32 max abs (tests/test_kernels.py)
+SSD_TOL = 3e-5                 # y and state in float32 (test_kernels.py)
+# name -> (B, S, H, KV, hd, W, dtype); the first is the prefill's main case
+SWA_SHAPES = {
+    "hymba_w1024_bf16": (4, 2048, 25, 5, 64, 1024, "bfloat16"),
+    "hymba_w0_bf16": (4, 2048, 25, 5, 64, 0, "bfloat16"),
+    "hymba_w1024_f32": (4, 2048, 25, 5, 64, 1024, "float32"),
+    "hymba_w0_f32": (4, 2048, 25, 5, 64, 0, "float32"),
+    "qwen3_hd128_w0_bf16": (1, 2048, 16, 8, 128, 0, "bfloat16"),
+    "qwen3_hd128_w0_f32": (1, 2048, 16, 8, 128, 0, "float32"),
+    "s1000_w100_f32": (2, 1000, 25, 5, 64, 100, "float32"),
+    "w_over_s_f32": (2, 300, 4, 2, 64, 1024, "float32"),
+    "s1_bf16": (3, 1, 4, 2, 64, 1024, "bfloat16"),
+}
+SWA_TIMED = ("hymba_w1024_bf16", "hymba_w0_bf16")
+# name -> (B, S, H, G, P, N, dtype), chunk 128 (the divisor rule applies)
+SSD_SHAPES = {
+    "hymba_bf16": (4, 2048, 50, 1, 64, 16, "bfloat16"),
+    "hymba_f32": (4, 2048, 50, 1, 64, 16, "float32"),
+    "mamba2_130m_f32": (4, 2048, 24, 1, 64, 128, "float32"),
+    "mamba2_130m_bf16": (4, 2048, 24, 1, 64, 128, "bfloat16"),
+    "g2_f32": (2, 512, 4, 2, 64, 16, "float32"),
+    "s1000_chunk125_f32": (2, 1000, 50, 1, 64, 16, "float32"),
+}
+SERVE_PREFILL = (4, 2048)      # requests x prompt tokens
+SERVE_GEN = (4, 16, 32)        # requests, prompt tokens, new tokens
+
+
+def _swa_inputs(torch, B, S, H, KV, hd, dtype, seed):
+    g = torch.Generator("cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    r = lambda shape, s: (s * torch.randn(shape, generator=g, device="cuda")
+                          ).to(dt)
+    return r((B, S, H, hd), 0.5), r((B, S, KV, hd), 0.5), r((B, S, KV, hd), 1.0)
+
+
+def _swa_bound(B, S, H, KV, hd, W, dtype) -> dict:
+    """Least time for the band: 4*hd flops per unmasked (q, k) pair at the
+    inputs' peak rate (bf16 tensor cores; float32 CUDA cores), against q,
+    k, v read and o written once (k, v unrepeated)."""
+    pairs = B * H * sum(min(i + 1, W) if W > 0 else i + 1 for i in range(S))
+    esize = 2 if dtype == "bfloat16" else 4
+    ops_ms = 4 * hd * pairs / (BF16_FLOPS if esize == 2 else FP32_FLOPS) * 1e3
+    bytes_ms = esize * hd * B * S * (2 * H + 2 * KV) / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "pairs": pairs,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def _bf16_steps(torch, got, want) -> float:
+    """The bf16 limit: the largest |got - want| over the elements, in units
+    of one bf16 step of that element of ``want`` (2^(floor(log2|want|) - 7))
+    plus 2^-16. Two bf16 roundings of float32 values that agree to float32
+    precision differ by at most one step, so a kernel that computes the
+    plain version's function in float32 reads <= 1; one that keeps scores,
+    probabilities or dt in bf16 reads far more (the controls below)."""
+    w = want.float().abs().clamp_min(2.0 ** -126)
+    step = torch.exp2(torch.floor(torch.log2(w)) - 7) + 2.0 ** -16
+    return ((got.float() - want.float()).abs() / step).max().item()
+
+
+def phase_swa_kernel(torch, ops, blocks):
+    """Kernel #6 against its plain version at every listed shape; timings
+    of the kernel, the plain version and SDPA with a boolean band mask (the
+    library yardstick, called nowhere in the port) at the prefill's. There,
+    two controls must fail the bf16 limit that the kernel meets: SDPA and
+    the XLA path's bf16 softmax (``blocks._sdpa_core``)."""
+    F = torch.nn.functional
+    worst, timings = {"float32": 0.0, "bfloat16": 0.0}, {}
+    steps = {}
+    for i, (name, (B, S, H, KV, hd, W, dtype)) in enumerate(
+            SWA_SHAPES.items()):
+        q, k, v = _swa_inputs(torch, B, S, H, KV, hd, dtype, seed=i)
+        got = ops.swa_attention(q, k, v, W)
+        want = ops.swa_attention_plain(q, k, v, W)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if dtype == "float32":
+            ok, limit = err <= SWA_TOL, f"max_abs <= {SWA_TOL}"
+        else:
+            steps[name] = _bf16_steps(torch, got, want)
+            ok, limit = steps[name] <= 1.0, (
+                f"bf16_steps={steps[name]:.4f} <= 1")
+        print(f"swa check {name} B={B} S={S} H={H} KV={KV} hd={hd} W={W} "
+              f"{dtype}: max_abs_err={err:.3e}, {limit}")
+        if not (math.isfinite(err) and ok):
+            raise PhaseError(f"swa kernel disagrees at {name}: {limit} "
+                             f"fails (max abs {err})")
+        worst[dtype] = max(worst[dtype], err)
+        if name in SWA_TIMED:
+            pos = torch.arange(S, device="cuda")
+            band = pos[None, :] <= pos[:, None]
+            if W > 0:
+                band &= pos[None, :] > pos[:, None] - W
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=band, enable_gqa=True)
+            lib_out = lib().transpose(1, 2)
+            lib_err = (lib_out.float() - want.float()).abs().max().item()
+            kk, vv = ops.repeat_kv(k, H), ops.repeat_kv(v, H)
+            controls = {"sdpa": _bf16_steps(torch, lib_out, want),
+                        "xla_bf16_softmax": _bf16_steps(
+                            torch, blocks._sdpa_core(q, kk, vv,
+                                                     band[None, None]),
+                            want)}
+            del lib_out, kk, vv
+            print(f"swa bf16 controls {name}: bf16_steps " +
+                  json.dumps(controls))
+            failed = {c: r for c, r in controls.items() if not r > 1.0}
+            if failed:
+                raise PhaseError(f"the bf16 limit cannot tell these from "
+                                 f"the kernel at {name}: {failed}")
+            call = lambda: ops.swa_attention(q, k, v, W)
+            t = {"shape": [B, S, H, KV, hd, W, dtype],
+                 "ms": _cuda_ms(torch, call, 20),
+                 "device_ms": _kernel_device_ms(torch, call, "swa_fwd_kernel",
+                                                10),
+                 "plain_ms": _cuda_ms(torch, lambda: ops.swa_attention_plain(
+                     q, k, v, W), 5),
+                 "library_ms": _cuda_ms(torch, lib, 20),
+                 "library_max_abs_err": lib_err,
+                 "bf16_steps": steps[name], "control_bf16_steps": controls,
+                 **_swa_bound(B, S, H, KV, hd, W, dtype)}
+            timings[name] = t
+            print(f"swa timing {name}: " + json.dumps(t))
+        del q, k, v, got, want
+    return worst, steps, timings
+
+
+def _ssd_inputs(torch, B, S, H, G, P, N, dtype, seed):
+    """The distributions of the JAX package's kernel tests."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    dt_ = getattr(torch, dtype)
+    return ((0.5 * r(B, S, H, P)).to(dt_),
+            torch.nn.functional.softplus(r(B, S, H)),
+            -torch.exp(0.3 * r(H)),
+            (0.3 * r(B, S, G, N)).to(dt_), (0.3 * r(B, S, G, N)).to(dt_))
+
+
+def _ssd_bound(B, S, H, G, P, N, dtype) -> dict:
+    """Least time for the scan: x, dt, B, C, A read and y, the state
+    written once, against the recurrent form's arithmetic (4 float32 flops
+    per (step, p, n)) at the CUDA cores' float32 rate."""
+    esize = 2 if dtype == "bfloat16" else 4
+    n_bytes = (esize * (2 * B * S * H * P + 2 * B * S * G * N)
+               + 4 * (B * S * H + H + B * H * P * N))
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * B * S * H * P * N / FP32_FLOPS * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms,
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
+
+
+def _check_ssd(torch, ops, blocks, name, args, init, steps) -> float:
+    """One kernel-vs-plain check of #7; returns its largest max abs error
+    (y or state). bf16 y is held to ``_bf16_steps`` <= 1, f32 y and every
+    state to SSD_TOL."""
+    y, st = ops.ssd_scan(*args, chunk=128, init_state=init)
+    y_r, st_r = blocks.ssd_ref(*args, chunk=128, init_state=init)
+    torch.cuda.synchronize()
+    err_y = (y.float() - y_r.float()).abs().max().item()
+    err_st = (st - st_r).abs().max().item()
+    if y.dtype == torch.float32:
+        ok, limit = err_y <= SSD_TOL, f"y max_abs <= {SSD_TOL}"
+    else:
+        steps[name] = _bf16_steps(torch, y, y_r)
+        ok, limit = steps[name] <= 1.0, f"y bf16_steps={steps[name]:.4f} <= 1"
+    S = args[0].shape[1]
+    print(f"ssd check {name} {tuple(args[0].shape)} G={args[3].shape[2]} "
+          f"N={args[3].shape[3]} chunk={ops.chunk_len(S, 128)} {y.dtype}: "
+          f"y max_abs_err={err_y:.3e}, {limit}, state max_abs_err="
+          f"{err_st:.3e}")
+    if not (ok and err_st <= SSD_TOL):
+        raise PhaseError(f"ssd kernel disagrees at {name}: {limit} fails "
+                         f"(y max abs {err_y}), state {err_st}")
+    return max(err_y, err_st)
+
+
+def phase_ssd_kernel(torch, ops, blocks):
+    """Kernel #7 against its plain version (``blocks.ssd_ref``) at every
+    listed shape, and from a given initial state at the first; timings at
+    the prefill's. In bf16 the plain version fed dt rounded to bf16 (a
+    kernel that kept dt in bf16) must fail the limit the kernel meets. No
+    single PyTorch call computes the scan, so there is no library time."""
+    worst, timings = {"float32": 0.0, "bfloat16": 0.0}, {}
+    steps, controls = {}, {}
+    for i, (name, (B, S, H, G, P, N, dtype)) in enumerate(
+            SSD_SHAPES.items()):
+        args = _ssd_inputs(torch, B, S, H, G, P, N, dtype, seed=100 + i)
+        err = _check_ssd(torch, ops, blocks, name, args, None, steps)
+        if i == 0:
+            g = torch.Generator("cuda").manual_seed(99)
+            init = 0.1 * torch.randn(B, H, P, N, generator=g, device="cuda")
+            err = max(err, _check_ssd(torch, ops, blocks,
+                                      name + "_init_state", args, init,
+                                      steps))
+        worst[dtype] = max(worst[dtype], err)
+        if dtype == "bfloat16":
+            x, dt, A, Bv, Cv = args
+            y_r, _ = blocks.ssd_ref(*args, chunk=128)
+            y_c, _ = blocks.ssd_ref(x, dt.bfloat16().float(), A, Bv, Cv,
+                                    chunk=128)
+            controls[name] = _bf16_steps(torch, y_c, y_r)
+            print(f"ssd bf16 control {name}: dt in bf16, bf16_steps="
+                  f"{controls[name]:.4f}")
+            if not controls[name] > 1.0:
+                raise PhaseError(f"the bf16 limit cannot tell dt in bf16 "
+                                 f"from the kernel at {name}")
+            del y_r, y_c
+        if name == "hymba_bf16":
+            call = lambda: ops.ssd_scan(*args, chunk=128)
+            t = {"shape": [B, S, H, G, P, N, dtype],
+                 "ms": _cuda_ms(torch, call, 20),
+                 "device_ms": _kernel_device_ms(torch, call,
+                                                "ssd_scan_kernel", 10),
+                 "plain_ms": _cuda_ms(torch, lambda: blocks.ssd_ref(
+                     *args, chunk=128), 5),
+                 "library_ms": None, "bf16_steps": steps[name],
+                 "control_bf16_steps": controls[name],
+                 **_ssd_bound(B, S, H, G, P, N, dtype)}
+            timings[name] = t
+            print(f"ssd timing {name}: " + json.dumps(t))
+        del args
+    return worst, steps, controls, timings
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max()).item()
+
+
+def _device_profile(torch, fn, kernels=()) -> dict | None:
+    """Device-busy share and top device ops of one call of ``fn``, and the
+    device time per launch of each kernel named in ``kernels``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA
+              and _dev_us(e) > 0]
+    busy_s = sum(_dev_us(e) for e in events) / 1e6
+    if busy_s == 0:
+        return None
+    top = sorted(events, key=_dev_us, reverse=True)[:10]
+    return {"wall_s_under_profiler": wall, "device_busy_s": busy_s,
+            "device_busy_share": busy_s / wall,
+            "device_ops": sum(e.count for e in events),
+            "top": [{"name": e.key[:80], "device_ms": _dev_us(e) / 1e3,
+                     "count": e.count} for e in top],
+            "ms_per_launch": {k: _ms_per_launch(events, k)
+                              for k in kernels}}
+
+
+def _ms_per_launch(events, kernel_name: str):
+    """Mean device time of one launch of the named kernel in a profile's
+    device events; None where it has none."""
+    mine = [e for e in events if kernel_name in e.key]
+    count = sum(e.count for e in mine)
+    total_us = sum(_dev_us(e) for e in mine)
+    return total_us / count / 1e3 if count and total_us > 0 else None
+
+
+def phase_serve(torch, kops):
+    """hymba-1.5b at full width and depth in bf16 through the port's
+    serving entry points: one prefill of 4 x 2048 tokens
+    (``make_prefill_step``) and ``generate`` for 4 requests of 16 prompt
+    tokens and 32 new ones. Counts every kernel's launches, set to 0 just
+    before each and read just after: the prefill launches #6 32 times (29
+    at W=1024, 3 at W=0) and #7 32 times; decode launches neither; neither
+    launches a trainer kernel."""
+    from repro_torch import prng
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import get_config, get_model
+    from repro_torch.nn.pytree import tree_leaves
+    cfg = get_config("hymba-1.5b")
+    api = get_model(cfg)
+    key = prng.PRNGKey(0, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init(cfg, key)
+    torch.cuda.synchronize()
+    report = {"init_s": time.perf_counter() - t0,
+              "n_params": sum(x.numel() for x in tree_leaves(params))}
+    B, S = SERVE_PREFILL
+    tokens = prng.randint(prng.fold_in(key, 1), (B, S), 0, cfg.vocab_size)
+    prefill = make_prefill_step(cfg, api)
+    launches = {}
+    with torch.inference_mode():
+        prefill(params, {"tokens": tokens})          # warm (cuBLAS plans)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(kops)
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches["prefill"] = _counts(kops)
+        by_window = dict(kops[2].LAUNCHES_BY_WINDOW)
+        report.update(prefill_s=dt, prefill_tokens_per_s=B * S / dt,
+                      prefill_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if logits.shape != (B, cfg.padded_vocab) or not bool(
+                torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+            raise PhaseError(f"prefill logits {tuple(logits.shape)} not "
+                             f"finite")
+        want = {k: 0 for k in launches["prefill"]}
+        want.update(swa_attention=32, ssd_scan=32)
+        if launches["prefill"] != want or by_window != {1024: 29, 0: 3}:
+            raise PhaseError(f"prefill launches {launches['prefill']}, "
+                             f"{by_window} by window, expected {want}, "
+                             f"29 at W=1024 and 3 at W=0")
+        report["prefill_swa_launches_by_window"] = by_window
+        nb, npr, ngen = SERVE_GEN
+        prompts = prng.randint(prng.fold_in(key, 2), (nb, npr), 0,
+                               cfg.vocab_size)
+        generate(cfg, api, params, prompts, 2, cache_len=npr + 2)   # warm
+        torch.cuda.synchronize()
+        _reset(kops)
+        t0 = time.perf_counter()
+        toks = generate(cfg, api, params, prompts, ngen,
+                        cache_len=npr + ngen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches["decode"] = _counts(kops)
+        report.update(
+            generate_s=dt, decode_steps=npr + ngen,
+            decode_tokens_per_s=nb * (npr + ngen) / dt,
+            new_tokens_per_s=nb * ngen / dt,
+            sample_tokens=toks[0, npr:npr + 8].tolist())
+        if any(launches["decode"].values()):
+            raise PhaseError(f"decode launched a kernel: "
+                             f"{launches['decode']}")
+        if toks.shape != (nb, npr + ngen) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            raise PhaseError("generated tokens out of range")
+        report["prefill_profile"] = _device_profile(
+            torch, lambda: prefill(params, {"tokens": tokens}),
+            kernels=("swa_fwd_kernel", "ssd_scan_kernel"))
+    print("serve: " + json.dumps(report))
+    print(f"serve launches: {json.dumps(launches)}")
+    del params, logits
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+@contextlib.contextmanager
+def _plain_mixers(blocks, swa_ops):
+    """Points the model's sequence mixers at their plain versions for the
+    kernel-vs-plain cross-check, and back."""
+    saved = blocks.swa_attention, blocks.ssd_scan
+    blocks.swa_attention = swa_ops.swa_attention_plain
+    blocks.ssd_scan = blocks.ssd_ref
+    try:
+        yield
+    finally:
+        blocks.swa_attention, blocks.ssd_scan = saved
+
+
+def phase_serve_cross(torch, blocks, swa_ops):
+    """Cross-checks of the serving path at full width in float32:
+    forward vs decode-stepped logits over a 64-token prompt (rel < 2e-3,
+    the JAX contract of tests/test_decode_parity.py); the prefill's
+    next-token logits, kernel path vs plain path, full depth (rel <= 1e-4);
+    a 2-layer prefill on the CPU (plain) vs the card (kernels) (rel <=
+    1e-4)."""
+    from repro_torch import prng
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import get_config, get_model
+    from repro_torch.nn.pytree import tree_map
+    cfg = get_config("hymba-1.5b").replace(dtype="float32")
+    api = get_model(cfg)
+    prefill = make_prefill_step(cfg, api)
+    out = {}
+    with torch.inference_mode():
+        key = prng.PRNGKey(1, device="cuda")
+        params = api.init(cfg, key)
+        B, S = 2, 64
+        tokens = prng.randint(prng.fold_in(key, 1), (B, S), 0,
+                              cfg.vocab_size)
+        full, _ = api.forward(cfg, params, {"tokens": tokens})
+        cache = api.init_cache(cfg, B, S, device="cuda")
+        steps = []
+        for t in range(S):
+            lg, cache = api.decode_step(cfg, params, cache, {
+                "token": tokens[:, t],
+                "pos": torch.full((B,), t, dtype=torch.int32,
+                                  device="cuda")})
+            steps.append(lg)
+        v = cfg.vocab_size
+        out["forward_vs_decode_rel"] = _rel(torch.stack(steps, 1)[..., :v],
+                                            full[..., :v])
+        B, S = 2, 2048
+        tokens = prng.randint(prng.fold_in(key, 2), (B, S), 0,
+                              cfg.vocab_size)
+        got = prefill(params, {"tokens": tokens})
+        with _plain_mixers(blocks, swa_ops):
+            want = prefill(params, {"tokens": tokens})
+        out["prefill_kernel_vs_plain_rel"] = _rel(got[:, :v], want[:, :v])
+        del params, full, cache, got, want
+        torch.cuda.empty_cache()
+
+        cfg2 = cfg.replace(n_layers=2)
+        p_cpu = api.init(cfg2, prng.PRNGKey(2, device="cpu"))
+        tokens = prng.randint(prng.PRNGKey(3, device="cpu"), (2, 256), 0,
+                              cfg.vocab_size)
+        t0 = time.perf_counter()
+        want = make_prefill_step(cfg2, api)(p_cpu, {"tokens": tokens})
+        cpu_s = time.perf_counter() - t0
+        got = make_prefill_step(cfg2, api)(
+            tree_map(lambda a: a.cuda(), p_cpu), {"tokens": tokens.cuda()})
+        out["two_layer_cpu_vs_cuda_rel"] = _rel(got[:, :v].cpu(),
+                                                want[:, :v])
+        out["two_layer_cpu_s"] = cpu_s
+    print("serve cross-checks: " + json.dumps(out))
+    if not out["forward_vs_decode_rel"] < 2e-3:
+        raise PhaseError(f"forward vs decode: rel "
+                         f"{out['forward_vs_decode_rel']}")
+    for k in ("prefill_kernel_vs_plain_rel", "two_layer_cpu_vs_cuda_rel"):
+        if not out[k] <= 1e-4:
+            raise PhaseError(f"{k} = {out[k]} exceeds 1e-4")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -502,7 +980,12 @@ def main() -> int:
         from repro_torch.kernels.otp_xor import build as otp_build
         from repro_torch.kernels.otp_xor import ops as otp_ops
         from repro_torch.kernels.otp_xor import ref as otp_ref
+        from repro_torch.kernels.ssd_scan import build as ssd_build
+        from repro_torch.kernels.ssd_scan import ops as ssd_ops
         from repro_torch.kernels.statevec_gate import build, ops, ref
+        from repro_torch.kernels.swa_attention import build as swa_build
+        from repro_torch.kernels.swa_attention import ops as swa_ops
+        from repro_torch.models import blocks
     except ImportError as err:
         print(f"chip_smoke: run from the root of a checkout ({err})",
               file=sys.stderr)
@@ -515,7 +998,8 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    kbuild.build(build.SOURCE, otp_build.SOURCE)     # one nvcc each, at once
+    kbuild.build(build.SOURCE, otp_build.SOURCE, swa_build.SOURCE,
+                 ssd_build.SOURCE)                   # one nvcc each, at once
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
 
     max_err, timings = phase_kernel(torch, ops, ref)
@@ -524,12 +1008,23 @@ def main() -> int:
     trace = build_trace(n_sats=50, n_planes=10, device="cuda")
     sats, server = _data(torch, 50)
     print(f"trace + data: {time.perf_counter() - t0:.1f} s")
-    launches, report = phase_trainer(torch, ops, otp_ops, trace, sats,
-                                     server)
+    kops = (ops, otp_ops, swa_ops, ssd_ops)
+    launches, report = phase_trainer(torch, kops, trace, sats, server)
     print(f"trainer launches by path: {json.dumps(launches)}")
     print("trainer report: " + json.dumps(report))
     phase_cross_device(torch, trace, sats, server)
     phase_profile(torch, trace, sats, server)
+    del trace, sats, server
+    torch.cuda.empty_cache()
+    swa_err, swa_steps, swa_timings = phase_swa_kernel(torch, swa_ops,
+                                                       blocks)
+    ssd_err, ssd_steps, ssd_controls, ssd_timings = phase_ssd_kernel(
+        torch, ssd_ops, blocks)
+    llm_launches, serve_report = phase_serve(torch, kops)
+    launches.update(llm_launches)
+    prefill_ms = (serve_report["prefill_profile"] or {}).get(
+        "ms_per_launch", {})
+    phase_serve_cross(torch, blocks, swa_ops)
 
     t = timings["ansatz"]
     entries = [{
@@ -554,7 +1049,35 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "device_ms": t["device_ms"], "shapes": otp_timings[name]})
+    # the serving kernels at the prefill's main shape (bf16; swa at W=1024,
+    # 29 of the 32 layers); launches are those of one 4 x 2048 prefill
+    # (device_ms is the kernel alone at that shape; the prefill's own
+    # device time per launch, from its profile, is beside it). The bf16
+    # limit's readings: the kernel's at every bf16 shape (<= 1 passes) and
+    # the controls' that must fail it
+    swa_controls = {n: t["control_bf16_steps"]
+                    for n, t in swa_timings.items()}
+    for name, kernel, source, replaces, err, steps, controls, t, timed in (
+            ("swa_attention", "swa_fwd_kernel", SWA_SOURCE,
+             "swa_attention/kernel.py:144", swa_err, swa_steps,
+             swa_controls, swa_timings["hymba_w1024_bf16"], swa_timings),
+            ("ssd_scan", "ssd_scan_kernel", SSD_SOURCE,
+             "ssd_scan/kernel.py:89", ssd_err, ssd_steps, ssd_controls,
+             ssd_timings["hymba_bf16"], ssd_timings)):
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": "src/repro/kernels/" + replaces,
+            "max_abs_err": max(err.values()), "max_abs_err_by_dtype": err,
+            "bf16_steps": steps, "control_bf16_steps": controls,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "prefill_device_ms_per_launch": prefill_ms.get(kernel),
+            "shapes": timed})
     for entry in entries:
+        # launches as read on every path: the trainer paths, the prefill
+        # and decode, each counted from 0 (a kernel's own paths are its
+        # main path; it must read 0 on the others)
         by_path = {p: c[entry["name"]] for p, c in launches.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path

@@ -15,4 +15,8 @@ the paper's VQC with the fused gate layer running as a hand-written CUDA
 kernel (``repro_torch.kernels.statevec_gate``) and securing every model
 exchange with BB84 keys, threefry pads and the GF(2^31 - 1) MAC, the
 XOR and MAC fused in a second CUDA kernel (``repro_torch.kernels.otp_xor``).
+It also serves ``hymba-1.5b``, the hybrid attention ∥ Mamba-2 decoder of
+the LLM client zoo (``launch.steps``, ``launch.serve``), its prefill's
+attention and SSD scan running as two more CUDA kernels
+(``kernels.swa_attention``, ``kernels.ssd_scan``).
 """

@@ -4,6 +4,10 @@
                   statevectors (the VQC's inner loop), in CUDA C++
   otp_xor       — the fused OTP-XOR + GF(2^31 - 1) MAC over every edge
                   stream of a secure-exchange stage, in CUDA C++
+  swa_attention — sliding-window / causal flash attention of the LLM
+                  decoder's prefill, in CUDA C++
+  ssd_scan      — the Mamba-2 SSD chunked scan of the same prefill, in
+                  CUDA C++
 
 Each package holds ``csrc/`` (the CUDA source), ``build.py`` (its ctypes
 binding; ``kernels/build.py`` compiles with nvcc at first use),

@@ -1,0 +1,398 @@
+"""Building blocks of the hybrid decoder (port of ``repro.models.blocks``).
+
+Every block comes as an ``*_init`` returning a *stacked* parameter dict
+with a leading layer axis L (the decoder loops over it) and apply
+functions for the two execution modes:
+
+  * ``*_apply``  — full-sequence prefill forward
+  * ``*_decode`` — single-token serve step against a (possibly ring-buffer
+    sliding-window) cache
+
+Conventions:
+  x          (B, S, d) activations
+  positions  (B, S) or (B,) absolute int token positions
+  window     0 = full causal attention; >0 = sliding window (ring cache)
+
+The prefill runs its two sequence mixers through the hand-written
+kernels: ``attn_apply`` through ``kernels.swa_attention`` and
+``ssm_apply`` through ``kernels.ssd_scan`` (each takes its plain version
+on CPU tensors). Single-token decode is plain torch, as in the JAX
+package. Ported here: the parts the hybrid decoder needs (attention,
+SwiGLU FFN, Mamba-2). Not yet: MoE, cross-attention, the query-chunked
+attention and the int8 KV cache (ROADMAP queue 1, item 11).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import prng
+from repro_torch.kernels.ssd_scan.ops import chunk_len, ssd_scan
+from repro_torch.kernels.swa_attention.ops import repeat_kv as _repeat_kv
+from repro_torch.kernels.swa_attention.ops import swa_attention
+from repro_torch.models.config import ArchConfig
+from repro_torch.nn.common import (
+    apply_rope, layer_norm, rms_norm, rope_angles, softplus, swiglu,
+)
+from repro_torch.nn.init import normal_init, scaled_init, uniform_init
+
+NEG_INF = -1e30
+_F32 = torch.float32
+
+
+def _pre(L) -> tuple:
+    """Leading stack axes: None -> (), int -> (L,), tuple -> tuple."""
+    if L is None:
+        return ()
+    if isinstance(L, (tuple, list)):
+        return tuple(L)
+    return (L,)
+
+
+def _norm(cfg: ArchConfig, x, scale):
+    if cfg.norm_type == "rmsnorm":
+        return rms_norm(x, scale, cfg.norm_eps)
+    if cfg.norm_type == "nonparam_ln":
+        return layer_norm(x, None, None, cfg.norm_eps)
+    if cfg.norm_type == "layernorm":
+        s, b = (scale if isinstance(scale, tuple) else (scale, None))
+        return layer_norm(x, s, b, cfg.norm_eps)
+    raise ValueError(cfg.norm_type)
+
+
+def norm_init(cfg: ArchConfig, L: int | None, dtype, device):
+    """Stacked norm scale, or None for non-parametric (olmo)."""
+    if cfg.norm_type == "nonparam_ln":
+        return None
+    return torch.ones(_pre(L) + (cfg.d_model,), dtype=dtype, device=device)
+
+
+# =========================================================================
+# Attention (self, GQA, qk-norm, sliding window, ring-buffer cache)
+# =========================================================================
+
+def attn_init(key, cfg: ArchConfig, L: int | None, dtype):
+    H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    pre = _pre(L)
+    ks = prng.split(key, 4)
+    p = {
+        "wq": scaled_init(ks[0], pre + (d, H * hd), dtype),
+        "wk": scaled_init(ks[1], pre + (d, KV * hd), dtype),
+        "wv": scaled_init(ks[2], pre + (d, KV * hd), dtype),
+        "wo": scaled_init(ks[3], pre + (H * hd, d), dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(pre + (hd,), dtype=dtype, device=key.device)
+        p["k_norm"] = torch.ones(pre + (hd,), dtype=dtype, device=key.device)
+    return p
+
+
+def _project_qkv(p, cfg: ArchConfig, xq, xkv, cos_q=None, sin_q=None,
+                 cos_k=None, sin_k=None):
+    """Project q from xq and k,v from xkv; apply qk-norm and rope."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    Bq, Sq, _ = xq.shape
+    Bk, Sk, _ = xkv.shape
+    q = (xq @ p["wq"]).reshape(Bq, Sq, H, hd)
+    k = (xkv @ p["wk"]).reshape(Bk, Sk, KV, hd)
+    v = (xkv @ p["wv"]).reshape(Bk, Sk, KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cos_q is not None:
+        q = apply_rope(q, cos_q, sin_q)
+    if cos_k is not None:
+        k = apply_rope(k, cos_k, sin_k)
+    return q, k, v
+
+
+def _sdpa_core(q, k, v, mask):
+    """Softmax attention: q (B,Sq,H,hd), k/v (B,Sk,H,hd), mask (B,1,Sq,Sk)
+    -> (B,Sq,H,hd). Softmax statistics in fp32; the score and probability
+    tensors stay in the activation dtype, as in the JAX package."""
+    hd = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
+    m = torch.amax(scores, dim=-1, keepdim=True).detach()
+    p = torch.exp(scores - m)
+    l = torch.clamp(torch.sum(p, dim=-1, keepdim=True, dtype=_F32), min=1e-30)
+    probs = p / l.to(p.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _sdpa(q, k, v, mask, out_proj):
+    o = _sdpa_core(q, k, v, mask)
+    return o.reshape(o.shape[0], o.shape[1], -1) @ out_proj
+
+
+def attn_apply(p, cfg: ArchConfig, x, positions, *, window: int = 0,
+               ctx=None):
+    """Full-sequence causal self-attention (prefill), through
+    ``kernels.swa_attention``. The kernel bands by row index, so positions
+    must be ``arange(S)`` in every row, as ``decoder.forward_hidden``
+    passes them (they also give the rope angles). ``ctx`` is accepted and
+    ignored."""
+    B, S, _ = x.shape
+    cos, sin = rope_angles(positions, cfg.hd, cfg.rope_theta)
+    q, k, v = _project_qkv(p, cfg, x, x, cos, sin, cos, sin)
+    return swa_attention(q, k, v, window).reshape(B, S, -1) @ p["wo"]
+
+
+def attn_cache_init(cfg: ArchConfig, L: int | None, batch: int,
+                    cache_len: int, dtype, device) -> dict:
+    """Ring-buffer KV cache. ``pos`` holds the absolute position stored in
+    each slot (-1 = empty). The int8 cache of the JAX package is not
+    ported yet."""
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError("the int8 KV cache is not ported yet "
+                                  "(ROADMAP queue 1, item 11)")
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    pre = _pre(L)
+    return {
+        "pos": torch.full(pre + (batch, cache_len), -1, dtype=torch.int32,
+                          device=device),
+        "k": torch.zeros(pre + (batch, cache_len, KV, hd), dtype=dtype,
+                         device=device),
+        "v": torch.zeros(pre + (batch, cache_len, KV, hd), dtype=dtype,
+                         device=device),
+    }
+
+
+def attn_decode(p, cfg: ArchConfig, x, pos, cache, *, window: int = 0):
+    """Single-token decode. x (B,1,d); pos (B,) absolute position.
+
+    Returns (y (B,1,d), new_cache). The cache slot is pos % cache_len — a
+    ring buffer, which is exactly the sliding-window semantics when
+    cache_len == window, and a plain append when cache_len >= max_len.
+    The given cache is not written: the new one is a copy.
+    """
+    B = x.shape[0]
+    cos, sin = rope_angles(pos[:, None], cfg.hd, cfg.rope_theta)
+    q, k, v = _project_qkv(p, cfg, x, x, cos, sin, cos, sin)
+    ck, cv, cpos = cache["k"].clone(), cache["v"].clone(), cache["pos"].clone()
+    Sc = ck.shape[1]
+    slot = (pos % Sc).long()
+    bidx = torch.arange(B, device=x.device)
+    ck[bidx, slot] = k[:, 0].to(ck.dtype)
+    cv[bidx, slot] = v[:, 0].to(cv.dtype)
+    cpos[bidx, slot] = pos.to(cpos.dtype)
+    kk = _repeat_kv(ck, cfg.n_heads)
+    vv = _repeat_kv(cv, cfg.n_heads)
+    valid = (cpos >= 0) & (cpos <= pos[:, None])
+    if window > 0:
+        valid &= cpos > (pos[:, None] - window)
+    mask = valid[:, None, None, :]      # (B,1,1,Sc)
+    y = _sdpa(q, kk, vv, mask, p["wo"])
+    return y, {"k": ck, "v": cv, "pos": cpos}
+
+
+# =========================================================================
+# Dense FFN
+# =========================================================================
+
+def ffn_init(key, cfg: ArchConfig, L: int | None, dtype, d_ff: int = 0):
+    d, f = cfg.d_model, (d_ff or cfg.d_ff)
+    pre = _pre(L)
+    ks = prng.split(key, 3)
+    return {
+        "wg": scaled_init(ks[0], pre + (d, f), dtype),
+        "wu": scaled_init(ks[1], pre + (d, f), dtype),
+        "wd": scaled_init(ks[2], pre + (f, d), dtype),
+    }
+
+
+def ffn_apply(p, x):
+    return swiglu(x, p["wg"], p["wu"], p["wd"])
+
+
+# =========================================================================
+# Mamba-2 (SSD) block
+# =========================================================================
+
+def ssm_init(key, cfg: ArchConfig, L: int | None, dtype):
+    d, di, nh = cfg.d_model, cfg.d_inner, cfg.ssm_nheads
+    G, N, dc = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_dconv
+    pre = _pre(L)
+    ks = prng.split(key, 8)
+    dev = key.device
+    # A init in [1, 16) as in mamba2; dt_bias from inv-softplus of U(1e-3, 0.1)
+    a0 = uniform_init(ks[5], pre + (nh,), 1.0, 16.0)
+    dt0 = uniform_init(ks[6], pre + (nh,), 1e-3, 0.1)
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    return {
+        "wx": scaled_init(ks[0], pre + (d, di), dtype),
+        "wz": scaled_init(ks[1], pre + (d, di), dtype),
+        "wB": scaled_init(ks[2], pre + (d, G * N), dtype),
+        "wC": scaled_init(ks[3], pre + (d, G * N), dtype),
+        "wdt": scaled_init(ks[4], pre + (d, nh), dtype),
+        "dt_bias": dt_bias.to(_F32),
+        "A_log": torch.log(a0).to(_F32),
+        "D": torch.ones(pre + (nh,), dtype=_F32, device=dev),
+        "gnorm": torch.ones(pre + (di,), dtype=dtype, device=dev),
+        "wo": scaled_init(ks[7], pre + (di, d), dtype),
+        "conv_w": normal_init(ks[7], pre + (dc, cfg.conv_dim),
+                              stddev=1.0 / math.sqrt(dc)).to(dtype),
+        "conv_b": torch.zeros(pre + (cfg.conv_dim,), dtype=dtype,
+                              device=dev),
+    }
+
+
+def _segsum(x):
+    """(..., l) -> (..., l, l) cumulative segment sums, lower triangular,
+    in x's dtype from a float64 cumulative sum (see ``ssd_ref``)."""
+    l = x.shape[-1]
+    cs = torch.cumsum(x.double(), dim=-1)
+    seg = (cs[..., :, None] - cs[..., None, :]).to(x.dtype)
+    mask = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
+    return seg.masked_fill(~mask, float("-inf"))
+
+
+def ssd_ref(xh, dt, A, Bv, Cv, chunk: int = 128, init_state=None):
+    """Chunked SSD (state-space duality) forward — the plain version.
+
+    xh (b,s,h,p); dt (b,s,h) (post-softplus); A (h,) negative; Bv/Cv
+    (b,s,g,n). Returns (y (b,s,h,p), final_state (b,h,p,n)). All math
+    fp32 except the cumulative sums of dA, which are float64: a decay
+    exp(cs_l - cs_s) near the diagonal is the difference of two sums of up
+    to 128 steps, and in float32 that cancellation alone puts ~1e-5 on y
+    (the JAX package's float32 ``_segsum`` carries it). The CUDA kernel
+    sums the same way.
+    """
+    b, s, h, pdim = xh.shape
+    g, n = Bv.shape[2], Bv.shape[3]
+    rep = h // g
+    c = chunk_len(s, chunk)
+    nc = s // c
+
+    xf = xh.to(_F32).reshape(b, nc, c, h, pdim)
+    dtf = dt.to(_F32).reshape(b, nc, c, h)
+    Bh = Bv.to(_F32).reshape(b, nc, c, g, n).repeat_interleave(rep, dim=3)
+    Ch = Cv.to(_F32).reshape(b, nc, c, g, n).repeat_interleave(rep, dim=3)
+
+    dA = dtf * A[None, None, None, :]           # (b,nc,c,h) negative
+    dA_cs = torch.cumsum(dA.double(), dim=2)    # float64, see above
+
+    # intra-chunk (diagonal blocks)
+    Lmat = torch.exp(_segsum(dA.movedim(3, 2)))               # (b,nc,h,c,c)
+    scores = torch.einsum("bzlhn,bzshn->bzhls", Ch, Bh)       # (b,nc,h,c,c)
+    y_diag = torch.einsum("bzhls,bzhls,bzsh,bzshp->bzlhp",
+                          scores, Lmat, dtf, xf)
+
+    # chunk states
+    decay_states = torch.exp((dA_cs[:, :, -1:, :] - dA_cs).to(_F32))
+    states = torch.einsum("bzlhn,bzlh,bzlh,bzlhp->bzhpn",
+                          Bh, decay_states, dtf, xf)           # (b,nc,h,p,n)
+
+    # inter-chunk recurrence: the state entering each chunk
+    chunk_decay = torch.exp(dA_cs[:, :, -1, :].to(_F32))       # (b,nc,h)
+    carry = (torch.zeros((b, h, pdim, n), dtype=_F32, device=xh.device)
+             if init_state is None else init_state.to(_F32))
+    prev = []
+    for z in range(nc):
+        prev.append(carry)
+        carry = carry * chunk_decay[:, z, :, None, None] + states[:, z]
+    prev_states = torch.stack(prev, dim=1)                     # (b,nc,h,p,n)
+
+    # off-diagonal contribution
+    state_decay = torch.exp(dA_cs.to(_F32))                    # (b,nc,c,h)
+    y_off = torch.einsum("bzlhn,bzlh,bzhpn->bzlhp",
+                         Ch, state_decay, prev_states)
+
+    y = (y_diag + y_off).reshape(b, s, h, pdim)
+    return y.to(xh.dtype), carry
+
+
+def _causal_conv(u, w, b):
+    """Depthwise causal conv. u (B,S,C); w (K,C); b (C,)."""
+    K = w.shape[0]
+    S = u.shape[1]
+    pad = torch.nn.functional.pad(u, (0, 0, K - 1, 0))
+    # sum over taps: y[t] = sum_k w[k] * u[t - (K-1) + k]
+    y = torch.zeros(u.shape, dtype=_F32, device=u.device)
+    for k in range(K):
+        y = y + pad[:, k:k + S, :].to(_F32) * w[k].to(_F32)
+    return (y + b.to(_F32)).to(u.dtype)
+
+
+def ssm_apply(p, cfg: ArchConfig, x, *, chunk: int = 128):
+    """Full-sequence Mamba-2 mixer (prefill), the scan through
+    ``kernels.ssd_scan``."""
+    B, S, d = x.shape
+    nh, hd = cfg.ssm_nheads, cfg.ssm_headdim
+    G, N = cfg.ssm_ngroups, cfg.ssm_state
+    z = x @ p["wz"]
+    xin = x @ p["wx"]
+    Bv = x @ p["wB"]
+    Cv = x @ p["wC"]
+    dt = softplus((x @ p["wdt"]).to(_F32) + p["dt_bias"])
+
+    u = torch.cat([xin, Bv, Cv], dim=-1)
+    u = _causal_conv(u, p["conv_w"], p["conv_b"])
+    u = F.silu(u.to(_F32)).to(x.dtype)
+    xin = u[..., :cfg.d_inner]
+    Bv = u[..., cfg.d_inner:cfg.d_inner + G * N].reshape(B, S, G, N)
+    Cv = u[..., cfg.d_inner + G * N:].reshape(B, S, G, N)
+
+    A = -torch.exp(p["A_log"])
+    xh = xin.reshape(B, S, nh, hd)
+    y, _ = ssd_scan(xh, dt, A, Bv, Cv, chunk=chunk)
+    y = y + xh * p["D"][None, None, :, None].to(y.dtype)
+    y = y.reshape(B, S, cfg.d_inner)
+    y = rms_norm(y * F.silu(z.to(_F32)).to(y.dtype), p["gnorm"],
+                 cfg.norm_eps)
+    return y @ p["wo"]
+
+
+def ssm_cache_init(cfg: ArchConfig, L: int | None, batch: int, dtype,
+                   device) -> dict:
+    nh, hd, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+    pre = _pre(L)
+    return {
+        "state": torch.zeros(pre + (batch, nh, hd, N), dtype=_F32,
+                             device=device),
+        "conv": torch.zeros(pre + (batch, cfg.ssm_dconv - 1, cfg.conv_dim),
+                            dtype=dtype, device=device),
+    }
+
+
+def ssm_decode(p, cfg: ArchConfig, x, cache):
+    """Single-token recurrent SSD step. x (B,1,d)."""
+    B = x.shape[0]
+    nh, hd = cfg.ssm_nheads, cfg.ssm_headdim
+    G, N = cfg.ssm_ngroups, cfg.ssm_state
+    xt = x[:, 0]
+    z = xt @ p["wz"]
+    xin = xt @ p["wx"]
+    Bv = xt @ p["wB"]
+    Cv = xt @ p["wC"]
+    dt = softplus((xt @ p["wdt"]).to(_F32) + p["dt_bias"])    # (B, nh)
+
+    u = torch.cat([xin, Bv, Cv], dim=-1)                       # (B, conv_dim)
+    hist = torch.cat([cache["conv"], u[:, None]], dim=1)       # (B, K, C)
+    uc = (torch.einsum("bkc,kc->bc", hist.to(_F32), p["conv_w"].to(_F32))
+          + p["conv_b"].to(_F32))
+    uc = F.silu(uc).to(x.dtype)
+    new_conv = hist[:, 1:]
+
+    xin = uc[:, :cfg.d_inner]
+    Bv = uc[:, cfg.d_inner:cfg.d_inner + G * N].reshape(B, G, N)
+    Cv = uc[:, cfg.d_inner + G * N:].reshape(B, G, N)
+    rep = nh // G
+    Bh = Bv.repeat_interleave(rep, dim=1)                      # (B, nh, N)
+    Ch = Cv.repeat_interleave(rep, dim=1)
+
+    A = -torch.exp(p["A_log"])                                 # (nh,)
+    xh = xin.reshape(B, nh, hd).to(_F32)
+    dA = torch.exp(dt * A[None, :])                            # (B, nh)
+    state = (cache["state"] * dA[:, :, None, None]
+             + (dt[:, :, None] * xh)[..., None] * Bh[:, :, None, :].to(_F32))
+    y = torch.einsum("bhpn,bhn->bhp", state, Ch.to(_F32))
+    y = y + xh * p["D"][None, :, None]
+    y = y.reshape(B, cfg.d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z.to(_F32)).to(y.dtype), p["gnorm"],
+                 cfg.norm_eps)
+    out = (y @ p["wo"])[:, None, :]
+    return out, {"state": state, "conv": new_conv}

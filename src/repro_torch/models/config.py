@@ -1,8 +1,9 @@
 """Architecture configuration (a copy of ``repro.models.config.ArchConfig``).
 
 One frozen dataclass covers every model family; family-specific fields
-default to "off". The port serves the ``vqc`` family so far; the LLM
-fields are kept so the client zoo can be ported against the same config.
+default to "off". The port serves the ``vqc`` family and the hybrid
+decoder (``hymba-1.5b``); the other LLM fields are kept so the rest of the
+client zoo can be ported against the same config.
 """
 from __future__ import annotations
 
@@ -101,3 +102,44 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+def smoke_variant(cfg: ArchConfig) -> ArchConfig:
+    """Reduced same-family variant for CPU smoke tests (the JAX package's
+    ``smoke_variant``): 2 layers, d_model <= 256, <= 4 experts, small vocab."""
+    kw: dict = dict(
+        n_layers=2,
+        d_model=min(cfg.d_model, 256),
+        vocab_size=min(cfg.vocab_size, 512),
+        dtype="float32",
+    )
+    if cfg.n_heads:
+        kw["n_heads"] = min(cfg.n_heads, 4)
+        kw["n_kv_heads"] = (min(cfg.n_kv_heads, 2)
+                            if cfg.n_kv_heads < cfg.n_heads else kw["n_heads"])
+        kw["head_dim"] = 32 if cfg.head_dim else 0
+    if cfg.d_ff:
+        kw["d_ff"] = min(cfg.d_ff, 512)
+    if cfg.family == "moe":
+        kw["n_experts"] = 4
+        kw["n_experts_per_tok"] = 2
+        kw["moe_d_ff"] = 128
+        kw["first_dense_layers"] = min(cfg.first_dense_layers, 1)
+        kw["first_dense_d_ff"] = 256 if cfg.first_dense_d_ff else 0
+        kw["n_shared_experts"] = min(cfg.n_shared_experts, 1)
+    if cfg.family in ("ssm", "hybrid"):
+        kw["ssm_state"] = min(cfg.ssm_state, 16)
+        kw["ssm_headdim"] = 32
+    if cfg.family == "encdec":
+        kw["n_enc_layers"] = 2
+        kw["n_audio_frames"] = 32
+        kw["max_decode_len"] = 64
+    if cfg.family == "vlm":
+        kw["cross_every"] = 2
+        kw["n_layers"] = 4              # 2 groups of (1 cross + 1 self)
+        kw["n_image_tokens"] = 16
+        kw["vision_dim"] = kw["d_model"]
+    if cfg.sliding_window:
+        kw["sliding_window"] = 16
+        kw["global_attn_layers"] = (0,)
+    return cfg.replace(**kw)

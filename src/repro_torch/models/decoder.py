@@ -1,0 +1,255 @@
+"""Decoder-only language model, serving path (port of ``repro.models.decoder``).
+
+Layers are grouped into *segments*, contiguous runs of identical layers
+whose parameters are stacked along a leading layer axis; the forward and
+the decode step loop over each segment's layers in Python (the JAX
+package scans them). The port serves the hybrid family (parallel
+attention ∥ Mamba-2 heads, then a SwiGLU FFN: ``hymba-1.5b``); the dense
+and ssm kinds of the plan run through the same code, MoE is not ported.
+``loss`` and ``chunked_ce`` wait for the training slice (ROADMAP queue 1,
+item 11). ``ctx`` and ``remat`` are accepted and ignored.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch import prng
+from repro_torch.device import resolve_device
+from repro_torch.models import blocks as B
+from repro_torch.models.config import ArchConfig
+from repro_torch.nn.init import normal_init, scaled_init
+from repro_torch.nn.pytree import tree_map
+
+
+@dataclass(frozen=True)
+class SegmentSpec:
+    kind: str          # dense | moe | ssm | hybrid
+    n_layers: int
+    window: int = 0    # 0 = full attention
+    d_ff: int = 0      # dense-FFN hidden size (0 for ssm/moe kinds)
+
+
+def _per_layer_plan(cfg: ArchConfig) -> list[tuple]:
+    """(kind, window, d_ff) for each layer index."""
+    out = []
+    for i in range(cfg.n_layers):
+        w = 0
+        if cfg.sliding_window and i not in cfg.global_attn_layers:
+            w = cfg.sliding_window
+        if cfg.family == "ssm":
+            out.append(("ssm", 0, 0))
+        elif cfg.family == "hybrid":
+            out.append(("hybrid", w, cfg.d_ff))
+        elif cfg.family == "moe":
+            if i < cfg.first_dense_layers:
+                out.append(("dense", w, cfg.first_dense_d_ff or cfg.d_ff))
+            else:
+                out.append(("moe", w, 0))
+        else:
+            out.append(("dense", w, cfg.d_ff))
+    return out
+
+
+def segment_plan(cfg: ArchConfig) -> list[SegmentSpec]:
+    """Group contiguous identical layers into segments."""
+    plan, run = [], None
+    for kind, w, ff in _per_layer_plan(cfg):
+        if run and run[0] == (kind, w, ff):
+            run[1] += 1
+        else:
+            if run:
+                plan.append(SegmentSpec(run[0][0], run[1], run[0][1],
+                                        run[0][2]))
+            run = [(kind, w, ff), 1]
+    plan.append(SegmentSpec(run[0][0], run[1], run[0][1], run[0][2]))
+    return plan
+
+
+def _no_moe(seg: SegmentSpec):
+    if seg.kind == "moe":
+        raise NotImplementedError("MoE layers are not ported yet (ROADMAP "
+                                  "queue 1, item 11)")
+
+
+def _layer_init(key, cfg: ArchConfig, seg: SegmentSpec, dtype):
+    _no_moe(seg)
+    L = seg.n_layers
+    ks = prng.split(key, 6)
+    dev = key.device
+    parametric = cfg.norm_type != "nonparam_ln"
+    ones = lambda: torch.ones((L, cfg.d_model), dtype=dtype, device=dev)
+    p = {}
+    if seg.kind in ("dense", "hybrid"):
+        p["attn"] = B.attn_init(ks[0], cfg, L, dtype)
+    if seg.kind in ("ssm", "hybrid"):
+        p["ssm"] = B.ssm_init(ks[1], cfg, L, dtype)
+    if parametric:
+        p["ln1"] = ones()
+    if seg.kind == "hybrid":
+        # per-branch output norms, then the branches are averaged (hymba)
+        p["bn_attn"] = ones()
+        p["bn_ssm"] = ones()
+    if seg.kind in ("dense", "hybrid"):
+        p["ffn"] = B.ffn_init(ks[2], cfg, L, dtype, d_ff=seg.d_ff)
+        if parametric:
+            p["ln2"] = ones()
+    return p
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def init(cfg: ArchConfig, key) -> dict:
+    """Random parameters on the key's device (see ``nn.init``)."""
+    dtype = _dtype(cfg)
+    plan = segment_plan(cfg)
+    ks = prng.split(key, len(plan) + 3)
+    params = {
+        "embed": normal_init(ks[0], (cfg.padded_vocab, cfg.d_model), dtype),
+        "segments": [_layer_init(ks[2 + i], cfg, seg, dtype)
+                     for i, seg in enumerate(plan)],
+    }
+    if cfg.norm_type != "nonparam_ln":
+        params["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
+                                          device=key.device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = scaled_init(ks[1],
+                                        (cfg.d_model, cfg.padded_vocab), dtype)
+    return params
+
+
+def _layer(sp, i: int):
+    """Layer i of a segment's stacked parameters (or cache)."""
+    return tree_map(lambda a: a[i], sp)
+
+
+def _layer_apply(cfg: ArchConfig, seg: SegmentSpec, lp, x, positions, ctx):
+    _no_moe(seg)
+    h = B._norm(cfg, x, lp.get("ln1"))
+    if seg.kind == "ssm":
+        x = x + B.ssm_apply(lp["ssm"], cfg, h)
+    elif seg.kind == "hybrid":
+        a = B.attn_apply(lp["attn"], cfg, h, positions, window=seg.window,
+                         ctx=ctx)
+        s = B.ssm_apply(lp["ssm"], cfg, h)
+        x = x + 0.5 * (B.rms_norm(a, lp["bn_attn"], cfg.norm_eps)
+                       + B.rms_norm(s, lp["bn_ssm"], cfg.norm_eps))
+    else:
+        x = x + B.attn_apply(lp["attn"], cfg, h, positions,
+                             window=seg.window, ctx=ctx)
+    if seg.kind in ("dense", "hybrid"):
+        x = x + B.ffn_apply(lp["ffn"], B._norm(cfg, x, lp.get("ln2")))
+    return x
+
+
+def _run_segment(cfg, seg, sp, x, positions, ctx, remat: bool):
+    for i in range(seg.n_layers):
+        x = _layer_apply(cfg, seg, _layer(sp, i), x, positions, ctx)
+    return x
+
+
+def _logits(cfg: ArchConfig, params, x):
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = x @ head
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, B.NEG_INF)
+    return logits
+
+
+def forward_hidden(cfg: ArchConfig, params, batch, ctx=None,
+                   remat: bool = True):
+    """Final-normed hidden states (B,S,d) + aux losses (zero: the router
+    loss of MoE layers is the only aux term, and MoE is not ported)."""
+    tokens = batch["tokens"]
+    Bb, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device)[None].expand(Bb, S)
+    x = params["embed"][tokens]
+    for seg, sp in zip(segment_plan(cfg), params["segments"]):
+        x = _run_segment(cfg, seg, sp, x, positions, ctx, remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return B._norm(cfg, x, params.get("final_norm")), aux
+
+
+def forward(cfg: ArchConfig, params, batch, ctx=None, remat: bool = True):
+    """batch: {"tokens": (B,S) int}. Returns (logits (B,S,Vp), aux)."""
+    x, aux = forward_hidden(cfg, params, batch, ctx, remat)
+    return _logits(cfg, params, x), aux
+
+
+def prefill(cfg: ArchConfig, params, batch, ctx=None):
+    """Next-token logits (B,Vp) of ``forward``'s last position; the LM head
+    runs on that position only."""
+    x, _ = forward_hidden(cfg, params, batch, ctx, remat=False)
+    return _logits(cfg, params, x[:, -1])
+
+
+def loss(cfg: ArchConfig, params, batch, ctx=None):
+    raise NotImplementedError("the decoder's loss (chunked_ce) comes with "
+                              "the training slice (ROADMAP queue 1, item 11)")
+
+
+# =========================================================================
+# Serving (KV / SSM-state cache, single-token decode)
+# =========================================================================
+
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
+               device=None) -> dict:
+    dev = resolve_device(device)
+    dtype = _dtype(cfg)
+    caches = []
+    for seg in segment_plan(cfg):
+        c = {}
+        if seg.kind in ("dense", "hybrid"):
+            clen = min(seg.window, cache_len) if seg.window > 0 else cache_len
+            c["attn"] = B.attn_cache_init(cfg, seg.n_layers, batch, clen,
+                                          dtype, dev)
+        if seg.kind in ("ssm", "hybrid"):
+            c["ssm"] = B.ssm_cache_init(cfg, seg.n_layers, batch, dtype, dev)
+        caches.append(c)
+    return {"segments": caches}
+
+
+def _layer_decode(cfg: ArchConfig, seg: SegmentSpec, lp, lc, x, pos, ctx):
+    _no_moe(seg)
+    new_c = {}
+    h = B._norm(cfg, x, lp.get("ln1"))
+    if seg.kind == "ssm":
+        y, new_c["ssm"] = B.ssm_decode(lp["ssm"], cfg, h, lc["ssm"])
+    elif seg.kind == "hybrid":
+        a, new_c["attn"] = B.attn_decode(lp["attn"], cfg, h, pos, lc["attn"],
+                                         window=seg.window)
+        s, new_c["ssm"] = B.ssm_decode(lp["ssm"], cfg, h, lc["ssm"])
+        y = 0.5 * (B.rms_norm(a, lp["bn_attn"], cfg.norm_eps)
+                   + B.rms_norm(s, lp["bn_ssm"], cfg.norm_eps))
+    else:
+        y, new_c["attn"] = B.attn_decode(lp["attn"], cfg, h, pos, lc["attn"],
+                                         window=seg.window)
+    x = x + y
+    if seg.kind in ("dense", "hybrid"):
+        x = x + B.ffn_apply(lp["ffn"], B._norm(cfg, x, lp.get("ln2")))
+    return x, new_c
+
+
+def decode_step(cfg: ArchConfig, params, cache, batch, ctx=None):
+    """One serve step: batch {"token": (B,), "pos": (B,)} -> (logits (B,Vp),
+    new_cache). The cache holds `cache_len` past positions (ring buffer);
+    the given cache is not written."""
+    token, pos = batch["token"], batch["pos"]
+    x = params["embed"][token][:, None, :]
+    new_segments = []
+    for seg, sp, sc in zip(segment_plan(cfg), params["segments"],
+                           cache["segments"]):
+        layers = []
+        for i in range(seg.n_layers):
+            x, nc = _layer_decode(cfg, seg, _layer(sp, i), _layer(sc, i), x,
+                                  pos, ctx)
+            layers.append(nc)
+        new_segments.append(tree_map(lambda *xs: torch.stack(xs), *layers))
+    x = B._norm(cfg, x, params.get("final_norm"))
+    logits = _logits(cfg, params, x)
+    return logits[:, 0, :], {"segments": new_segments}

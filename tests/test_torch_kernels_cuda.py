@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
-Imports torch and the port only (no jax), so it runs on a GPU machine:
+Imports torch and the port only (no jax), so it runs on a GPU machine
+(``tests/conftest.py`` imports jax, hence ``--noconftest``):
 
-    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Every test carries the ``cuda`` marker and skips where no GPU is present:
 a CUDA kernel has no CPU mode.
@@ -14,7 +15,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.otp_xor import ops as otp_ops
 from repro_torch.kernels.otp_xor import ref as otp_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.statevec_gate import ops, ref
+from repro_torch.kernels.swa_attention import ops as swa_ops
+from repro_torch.models.blocks import ssd_ref
 
 
 def _need_cuda():
@@ -167,3 +171,183 @@ def test_trainer_raises_when_the_kernel_cannot_launch(monkeypatch):
                        trace, sats, server, device="cuda")
     with pytest.raises(RuntimeError, match="refused"):
         tr.run_round(0)
+
+
+def _swa_inputs(B, S, H, KV, hd, dtype, seed):
+    rng = np.random.default_rng(seed)
+    t = lambda shape, scale: torch.tensor(
+        (scale * rng.standard_normal(shape)).astype(np.float32),
+        device="cuda").to(dtype)
+    return (t((B, S, H, hd), 0.5), t((B, S, KV, hd), 0.5),
+            t((B, S, KV, hd), 1.0))
+
+
+def _bf16_steps(got, want) -> float:
+    """Largest |got - want| in units of one bf16 step of each element of
+    ``want`` (2^(floor(log2|want|) - 7)) plus 2^-16: two bf16 roundings of
+    float32 values that agree to float32 precision read <= 1."""
+    w = want.float().abs().clamp_min(2.0 ** -126)
+    step = torch.exp2(torch.floor(torch.log2(w)) - 7) + 2.0 ** -16
+    return ((got.float() - want.float()).abs() / step).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,KV,hd,W", [
+    (2, 64, 4, 2, 64, 16),        # the smoke model's attention
+    (1, 96, 4, 2, 32, 0),
+    (1, 1000, 3, 1, 64, 100),     # S no power of two, 3 heads
+    (1, 50, 2, 2, 128, 64),       # W > S
+    (2, 1, 2, 1, 64, 0),          # S = 1
+    (4, 2048, 25, 5, 64, 1024),   # hymba-1.5b's prefill
+])
+def test_swa_kernel_matches_plain(B, S, H, KV, hd, W, dtype):
+    """The kernel == the plain version (f32 ≤ 2e-5; bf16 within one bf16
+    step of each element), with one launch counted."""
+    _need_cuda()
+    q, k, v = _swa_inputs(B, S, H, KV, hd, dtype, seed=S + W)
+    before = swa_ops.LAUNCHES
+    got = swa_ops.swa_attention(q, k, v, W)
+    assert swa_ops.LAUNCHES == before + 1
+    want = swa_ops.swa_attention_plain(q, k, v, W)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 2e-5
+    else:
+        assert _bf16_steps(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+def test_swa_kernel_gradients_replay_the_plain_version():
+    _need_cuda()
+    q, k, v = _swa_inputs(1, 80, 4, 2, 64, torch.float32, seed=2)
+    w = torch.randn(q.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    grads = []
+    for fn in (swa_ops.swa_attention, swa_ops.swa_attention_plain):
+        args = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        (fn(*args, 16) * w).sum().backward()
+        grads.append([a.grad for a in args])
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["hd48", "float16", "kv3"])
+def test_swa_kernel_rejects_what_it_cannot_take(bad):
+    """A CUDA input the kernel cannot take raises and never drops to the
+    plain version."""
+    _need_cuda()
+    hd = 48 if bad == "hd48" else 64
+    q, k, v = _swa_inputs(1, 16, 4, 3 if bad == "kv3" else 2, hd,
+                          torch.float16 if bad == "float16"
+                          else torch.float32, seed=1)
+    before = swa_ops.LAUNCHES
+    with pytest.raises(ValueError):
+        swa_ops.swa_attention(q, k, v, 4)
+    assert swa_ops.LAUNCHES == before
+
+
+def _ssd_inputs(B, S, H, G, P, N, dtype, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.tensor(a.astype(np.float32), device="cuda")
+    x = f(0.5 * rng.standard_normal((B, S, H, P))).to(dtype)
+    dt = f(np.log1p(np.exp(rng.standard_normal((B, S, H)))))
+    A = f(-np.exp(0.3 * rng.standard_normal(H)))
+    Bv = f(0.3 * rng.standard_normal((B, S, G, N))).to(dtype)
+    Cv = f(0.3 * rng.standard_normal((B, S, G, N))).to(dtype)
+    return x, dt, A, Bv, Cv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,G,P,N", [
+    (2, 64, 16, 1, 32, 16),       # the smoke model's SSM
+    (2, 256, 4, 2, 16, 16),       # G = 2
+    (1, 1000, 8, 1, 64, 16),      # chunk falls back to 125
+    (1, 512, 24, 1, 64, 128),     # mamba2-130m's heads and state
+    (4, 2048, 50, 1, 64, 16),     # hymba-1.5b's prefill
+])
+def test_ssd_kernel_matches_plain(B, S, H, G, P, N):
+    """y and the final state == the plain version (f32 ≤ 3e-5), one launch
+    counted."""
+    _need_cuda()
+    args = _ssd_inputs(B, S, H, G, P, N, torch.float32, seed=S + H)
+    before = ssd_ops.LAUNCHES
+    y, st = ssd_ops.ssd_scan(*args, chunk=128)
+    assert ssd_ops.LAUNCHES == before + 1
+    y_r, st_r = ssd_ref(*args, chunk=128)
+    torch.cuda.synchronize()
+    assert (y - y_r).abs().max().item() <= 3e-5
+    assert (st - st_r).abs().max().item() <= 3e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,G,P,N", [(2, 64, 16, 1, 32, 16),
+                                         (4, 2048, 50, 1, 64, 16)])
+def test_ssd_kernel_matches_plain_in_bf16(B, S, H, G, P, N):
+    """bf16 y within one bf16 step of each element: kernel and plain
+    version round the same float32 sums; the float32 state ≤ 3e-5."""
+    _need_cuda()
+    args = _ssd_inputs(B, S, H, G, P, N, torch.bfloat16, seed=S + H)
+    y, st = ssd_ops.ssd_scan(*args, chunk=128)
+    y_r, st_r = ssd_ref(*args, chunk=128)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    assert _bf16_steps(y, y_r) <= 1.0
+    assert (st - st_r).abs().max().item() <= 3e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_kernel_starts_from_a_given_state(dtype):
+    """A given initial state is loaded by the kernel (one launch), never
+    sent to the plain version."""
+    _need_cuda()
+    args = _ssd_inputs(2, 256, 4, 2, 16, 16, dtype, seed=5)
+    init = 0.1 * torch.randn(2, 4, 16, 16, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(6))
+    before = ssd_ops.LAUNCHES
+    y, st = ssd_ops.ssd_scan(*args, chunk=128, init_state=init)
+    assert ssd_ops.LAUNCHES == before + 1
+    y_r, st_r = ssd_ref(*args, chunk=128, init_state=init)
+    y0, _ = ssd_ref(*args, chunk=128)
+    torch.cuda.synchronize()
+    assert (y.float() - y0.float()).abs().max().item() > 1e-3
+    if dtype == torch.float32:
+        assert (y - y_r).abs().max().item() <= 3e-5
+    else:
+        assert _bf16_steps(y, y_r) <= 1.0
+    assert (st - st_r).abs().max().item() <= 3e-5
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_gradients_replay_the_plain_version():
+    _need_cuda()
+    args = _ssd_inputs(1, 64, 4, 1, 16, 16, torch.float32, seed=3)
+    grads = []
+    for fn in (ssd_ops.ssd_scan, ssd_ref):
+        targs = [a.clone().requires_grad_(True) for a in args]
+        y, st = fn(*targs, chunk=32)
+        (y.square().sum() + st.sum()).backward()
+        grads.append([a.grad for a in targs])
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["chunk256", "odd_p", "mixed_dtype"])
+def test_ssd_kernel_rejects_what_it_cannot_take(bad):
+    _need_cuda()
+    P = 15 if bad == "odd_p" else 16
+    x, dt, A, Bv, Cv = _ssd_inputs(1, 512, 2, 1, P, 16, torch.float32,
+                                   seed=4)
+    if bad == "mixed_dtype":
+        Bv = Bv.to(torch.bfloat16)
+    before = ssd_ops.LAUNCHES
+    with pytest.raises(ValueError):
+        ssd_ops.ssd_scan(x, dt, A, Bv, Cv,
+                         chunk=256 if bad == "chunk256" else 128)
+    assert ssd_ops.LAUNCHES == before

@@ -7,6 +7,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.constellation import build_trace, walker_constellation
+from repro_torch.convert import params_from_jax, params_to_numpy
 from repro_torch.core import SatQFLTrainer
 from repro_torch.data import make_statlog
 from repro_torch.device import resolve_device
@@ -46,3 +47,42 @@ def test_default_device_raises_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_convert_carries_bf16_leaves_both_ways():
+    """A bfloat16 JAX leaf (an ml_dtypes array under numpy) crosses as its
+    bit pattern, and comes back as the same bfloat16 array."""
+    jnp = pytest.importorskip("jax.numpy")
+    import numpy as np
+    x = jnp.asarray([[1.0, -2.5, 3.1415926], [1e-3, 65504.0, -0.0]],
+                    jnp.bfloat16)
+    t = params_from_jax({"w": np.asarray(x)}, device="cpu")["w"]
+    assert t.dtype == torch.bfloat16
+    assert torch.equal(t.float(), torch.tensor(np.asarray(x, np.float32)))
+    back = params_to_numpy({"w": t})["w"]
+    assert back.dtype == np.asarray(x).dtype
+    np.testing.assert_array_equal(back.view(np.int16),
+                                  np.asarray(x).view(np.int16))
+
+
+def test_convert_carries_a_tree_with_a_segment_list():
+    """The decoder's tree: a list of per-segment dicts beside top leaves,
+    with mixed dtypes; round trip keeps structure, dtypes and values."""
+    import numpy as np
+    tree = {"embed": np.arange(6, dtype=np.float32).reshape(3, 2),
+            "segments": [{"attn": {"wq": np.ones((2, 4, 4), np.float32)},
+                          "ln1": np.full((2, 4), 0.5, np.float32)},
+                         {"ssm": {"A_log": np.zeros((1, 3), np.float32),
+                                  "pos": np.arange(3, dtype=np.int32)}}]}
+    t = params_from_jax(tree, device="cpu")
+    assert isinstance(t["segments"], list) and len(t["segments"]) == 2
+    assert t["segments"][1]["ssm"]["pos"].dtype == torch.int32
+    back = params_to_numpy(t)
+    assert list(back) == ["embed", "segments"]
+    for a, b in ((back["embed"], tree["embed"]),
+                 (back["segments"][0]["attn"]["wq"],
+                  tree["segments"][0]["attn"]["wq"]),
+                 (back["segments"][1]["ssm"]["pos"],
+                  tree["segments"][1]["ssm"]["pos"])):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
