@@ -9,57 +9,79 @@ all at once) and then:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, and the kernels' build time;
-2. holds the fused gate-layer kernel against its plain PyTorch version on
-   the card at nq ∈ {1, 2, 5, 8, 10, 13} and at the trainer's shapes
-   (ansatz G=64 clients × S=32 samples, encoding G=2048 × S=1, nq=8):
-   max abs error ≤ 1e-5 on both planes, norms preserved to 1e-5; and times
-   the kernel, the plain version and one batched complex matmul with the
-   kron'ed layer unitary (the library yardstick, used nowhere in the port)
-   with CUDA events over back-to-back calls, and the kernel alone on the
-   device with ``torch.profiler``;
-3. holds the fused OTP-XOR + MAC kernel against its plain version, bit
+2. holds the resident gate-layer kernel (#1) against its plain PyTorch
+   version on the card at nq ∈ {1, 2, 5, 8, 10, 13} and at the trainer's
+   shapes (nq=8: ansatz G=64 clients × S=32 samples, encoding G=2048 ×
+   S=1, the per-client oracle's G=1 and G=32, the shift rule's suffix
+   G=64 or 1 × S=512): max abs error ≤ 1e-5 on both planes, norms
+   preserved to 1e-5;
+   and times the kernel, the plain version and one batched complex matmul
+   with the kron'ed layer unitary (the library yardstick, used nowhere in
+   the port) with CUDA events over back-to-back calls, and on the device
+   alone (``_device_ms``: the calls queued behind a spin kernel);
+3. holds the single-gate kernel (#3) against its plain version (≤ 2e-6)
+   at the shift rule's insertion shapes (64, 32, 2^8) and (1, 32, 2^8) on
+   every qubit and
+   with the stride past 2^13 (nq 14-20), and its backward (≤ 1e-5); holds
+   the tiled layer (#2) (≤ 2e-6) at the JAX tests' forced small tiles and
+   at nq 14, 16 and 20; times #3 at the insertion shape (a complex matmul
+   of the (…, 2, lo) view as the library yardstick) and #2 at (64, 32,
+   2^14) and (1, 4, 2^20);
+4. holds the fused OTP-XOR + MAC kernel against its plain version, bit
    for bit, in both tag modes, through the rows entry (the trainer's stage
    (64, 62), a multi-block (5, 16389), the bandwidth shape (64, 2^20)),
    the stream entry (62 and 16384·4+7 words) and the padded-convention
    wrappers; times the kernel and the plain version at those shapes;
-4. runs the trainer at full width — the paper's 50-satellite / 10-plane
+5. runs the trainer at full width — the paper's 50-satellite / 10-plane
    trace over 6 h at 30 s, the 8-qubit 3-layer VQC, synthetic Statlog over
-   50 Dirichlet shards — on every path of the port: qfl and sim without
-   security (2 rounds each), qfl and sim under ``security="qkd"`` (3 rounds
-   each), sim under ``qkd_fernet`` (2 rounds) and sim qkd on the per-edge
-   oracle (``edge_batched=False``, 3 rounds, bit-exact against the
-   edge-batched run). Every launch count is set to 0 just before each path
-   and read just after; each path must launch each of its kernels, and
-   every round's val loss must be finite and below 10 (≈ ln 7);
-5. runs the sim trainer for 2 rounds on the CPU (plain path) and on the
-   card, without security and under qkd, and holds the metrics within
-   1e-4 and the accounting exactly equal; and one drop-mode round with
-   forced eavesdroppers on both, whose aborted edges must agree;
-6. profiles one warm secure sim round with ``torch.profiler`` and prints
-   the device-busy share and the kernels that take the most device time;
-7. holds the sliding-window attention kernel against its plain version
+   50 Dirichlet shards, 10 local steps of batch 32 — on every path of the
+   port (``TRAINER_PATHS``): qfl and sim without security, under qkd,
+   qkd_fernet and the per-edge oracle; qfl and sim under the
+   parameter-shift rule on the batched executor and the per-client
+   oracle, and sim qkd under it; sim under teleport security; and one sim
+   round at 14 qubits (the tiled layer). Every launch count is set to 0
+   just before each path and read just after; each path must launch each
+   of its kernels and no other, #1 52 (qfl) and 92 (sim) times a round,
+   and every round's val loss must be finite and below 10 (≈ ln 7);
+6. runs the VQC at 20 qubits (one batch of 4): forward, autodiff and the
+   parameter-shift rule, with their launches counted, against the same
+   with the plain versions on the card; and one full-width local step of
+   the parameter-shift rule (K=64 clients and the oracle's K=1, batch 32)
+   with the kernels against the same step with the plain versions
+   (≤ 1e-5), its launches counted (13 of #1, 96 of #3);
+7. runs the sim trainer on the CPU (plain path) and on the card, without
+   security, under the parameter-shift rule (2 local steps of batch 8)
+   and under qkd, and holds the
+   metrics within 1e-4 and the accounting exactly equal; and one
+   drop-mode round with forced eavesdroppers on both, whose aborted edges
+   must agree;
+8. profiles one warm sim round each under qkd, under the parameter-shift
+   rule and at 14 qubits with ``torch.profiler`` and prints the
+   device-busy share and the kernels that take the most device time;
+9. holds the sliding-window attention kernel against its plain version
    (f32 ≤ 2e-5; bf16 within one bf16 step of each element, see
    ``_bf16_steps``) at hymba-1.5b's prefill shape (4, 2048,
    25 heads over 5 kv heads, hd 64) at W=1024 and W=0 in bf16 and f32,
    qwen3-0.6b's hd 128 with GQA 16/8, and S=1000 with W=100, W > S and
-   S=1; times the kernel (CUDA events and profiler), the plain version and
+   S=1; times the kernel (CUDA events, back to back and on the device
+   alone), the plain version and
    SDPA with a boolean band mask (the library yardstick, used nowhere in
    the port) at hymba's shape, where SDPA and the XLA path's bf16 softmax
    (``blocks._sdpa_core``) must fail the bf16 limit;
-8. holds the SSD scan kernel against its plain version (y and state
+10. holds the SSD scan kernel against its plain version (y and state
    ≤ 3e-5 in f32; y within one bf16 step of each element in bf16, which
    the plain version fed dt rounded to bf16 must fail) at hymba's (4,
    2048, 50 heads, P 64, N 16), mamba2-130m's N=128, two B/C groups and
    S=1000 (chunk 125), and once from a given initial state; times it at
    hymba's shape;
-9. serves hymba-1.5b at full width and depth in bf16 from random weights:
+11. serves hymba-1.5b at full width and depth in bf16 from random weights:
    one ``make_prefill_step`` over 4 requests x 2048 tokens and
    ``generate`` for 4 requests of 16 prompt tokens and 32 new ones, the
    launch counts set to 0 just before each and read just after (the
    prefill must launch each kernel 32 times, 29 + 3 attention launches at
    W=1024 and W=0; decode neither), with prefill and decode rates, peak
    device memory and a profile of one prefill;
-10. cross-checks the serving path in f32 at full width: forward vs
+12. cross-checks the serving path in f32 at full width: forward vs
    decode-stepped logits over 64 tokens (rel < 2e-3), the full-depth
    prefill's next-token logits with the kernels vs their plain versions
    (rel ≤ 1e-4, TF32 off), and a 2-layer prefill of 2 x 256 tokens on
@@ -90,10 +112,15 @@ FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 INT32_OPS = 64 * 132 * 1.98e9
 TOL = 1e-5
 # the last two put group boundaries inside blocks, across many blocks
+# then the trainer's shapes: the ansatz and encoding layers on the batched
+# executor (K=64 clients x B=32) and the per-client oracle (K=1), and the
+# shift rule's suffix layers over the branch stacks (K, 2·nq·B, 2^8)
 CHECK_SHAPES = [(4, 3, 1), (4, 3, 2), (4, 3, 5), (4, 3, 8), (3, 2, 10),
-                (2, 2, 13), (64, 32, 8), (2048, 1, 8), (40, 3, 8),
-                (9, 7, 10)]
-MAIN_SHAPES = {"ansatz": (64, 32, 8), "encoding": (2048, 1, 8)}
+                (2, 2, 13), (40, 3, 8), (9, 7, 10),
+                (64, 32, 8), (2048, 1, 8), (1, 32, 8), (32, 1, 8),
+                (64, 512, 8), (1, 512, 8)]
+MAIN_SHAPES = {"ansatz": (64, 32, 8), "encoding": (2048, 1, 8),
+               "shift_suffix": (64, 512, 8)}
 
 
 class PhaseError(RuntimeError):
@@ -128,27 +155,46 @@ def _dev_us(event) -> float:
                    getattr(event, "self_cuda_time_total", 0.0))
 
 
-def _kernel_device_ms(torch, fn, kernel_name: str, iters: int):
-    """Device time of one launch of the named kernel, from torch.profiler
-    over ``iters`` calls; None where the profiler records no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def _device_ms(torch, fn, iters: int) -> float | None:
+    """Device time of one call of ``fn``: CUDA events around ``iters``
+    calls queued behind a spin kernel that outlasts their enqueueing, so
+    the events bracket device work only (the wrapper's host path, which
+    ``_cuda_ms`` includes for short kernels, is left out).
+
+    The spin is sized from the enqueue time of a first loop, and whether
+    it outlasted the timed loop's enqueueing is checked: the start event
+    must still be pending when the loop is queued. If it is not, the spin
+    is doubled and the loop timed again; after four tries the reading is
+    None ("not measured"), never a time that holds host work.
+
+    Kernel-alone ``torch.profiler`` profiles, which this replaces, came
+    back without device records on an H100 in most runs (every other
+    profile, and one read half the event time), while the whole-path
+    profiles of the same runs had them."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    # ~2e9 cycles a second on an H100: spin for twice the enqueue time
+    cycles = int(2e9 * (2 * enqueue_s + 1e-3))
+    for _ in range(4):
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(iters):
             fn()
+        stop.record()
+        spun_past = not start.query()
         torch.cuda.synchronize()
-    device = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == DeviceType.CUDA]
-    ms = _ms_per_launch(device, kernel_name)
-    if ms is not None:
-        return ms
-    # the profiler has come back without the kernel's records in some runs
-    # on an H100 (while a later profile of the prefill had them): say what
-    # it did record
-    print(f"profile of {kernel_name}: no device time; device records: "
-          + json.dumps([(e.key[:60], e.count, _dev_us(e)) for e in device]))
+        if spun_past:
+            return start.elapsed_time(stop) / iters
+        cycles *= 2
+    print(f"device time not measured: the spin ended before {iters} calls "
+          f"were queued, at {cycles // 2} cycles")
     return None
 
 
@@ -212,8 +258,7 @@ def phase_kernel(torch, ops, ref):
         layer = lambda: ops.apply_gate_layer(re, im, g8)
         t = {
             "kernel_ms": _cuda_ms(torch, layer, 200),
-            "device_ms": _kernel_device_ms(torch, layer,
-                                           "fused_layer_kernel", 50),
+            "device_ms": _device_ms(torch, layer, 50),
             "plain_ms": _cuda_ms(torch, lambda: ref.apply_layer_planes_ref(
                 re, im, g8), 50),
             "library_ms": _cuda_ms(torch, lambda: torch.matmul(state, u_t),
@@ -230,6 +275,143 @@ def phase_kernel(torch, ops, ref):
     return max_err, timings
 
 
+# (G, S, nq, q): the shift rule's insertions at the trainer's shapes (every
+# qubit; batched executor K=64 and per-client oracle K=1), the stride
+# inside a warp's segment (q < 5) and past 2^13 (q >= 13)
+GATE_SHAPES = [(K, 32, 8, q) for K in (64, 1) for q in range(8)] + [
+    (4, 3, 5, 4), (3, 1, 1, 0), (2, 2, 14, 13), (1, 3, 15, 14),
+    (1, 1, 16, 15), (2, 1, 16, 2), (1, 4, 20, 17), (1, 4, 20, 3)]
+# (G, S, nq, low_qubits, group_qubits, group_tile): the JAX tests' forced
+# small tiles, then the wide registers of the wide paths
+TILED_SHAPES = [(1, 1, 6, 3, 2, 4), (2, 3, 8, 4, 3, 8), (3, 2, 9, 5, 4, 16),
+                (64, 32, 14, 13, 7, 512), (3, 2, 16, 13, 7, 512),
+                (1, 4, 20, 13, 7, 512), (2, 1, 20, 13, 3, 512)]
+GATE_TOL = 2e-6                # f32 max abs, kernels #2 and #3 forward
+GRAD_TOL = 1e-5                # their gradients
+# the wide paths' main shapes: a 14-qubit round's ansatz layer; nq=20, B=4
+TILED_TIMED = {"nq14_ansatz": (64, 32, 14), "nq20_batch4": (1, 4, 20)}
+
+
+def _sv_bound(n_amps: int, n_pairs_ops: int) -> dict:
+    """Least time for a gate op: both planes read once and written once
+    (16 B an amplitude), against 28 flops per amplitude pair and stage."""
+    bytes_ms = 16 * n_amps / HBM_BYTES_PER_S * 1e3
+    flops_ms = 28 * n_pairs_ops / FP32_FLOPS * 1e3
+    return {"bound_ms": max(bytes_ms, flops_ms), "bytes_ms": bytes_ms,
+            "flops_ms": flops_ms,
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+
+
+def phase_gate_kernels(torch, ops, ref):
+    """Kernels #3 (one gate) and #2 (the tiled layer) against their plain
+    versions on the card, forward ≤ 2e-6 and #3's backward ≤ 1e-5; times
+    at the shapes their paths give them: #3 at the shift rule's insertion
+    (64, 32, 2^8) for every qubit, with a complex matmul of the (…, 2, lo)
+    view as the library yardstick (used nowhere in the port); #2 at the
+    wide paths' (64, 32, 2^14) and (1, 4, 2^20) (no single PyTorch call
+    computes the layer)."""
+    worst = {"statevec_gate_1q": 0.0, "statevec_gate_tiled": 0.0}
+    for i, (G, S, nq, q) in enumerate(GATE_SHAPES):
+        re, im, gates = _random_layer(torch, G, S, nq, seed=200 + i)
+        g8 = ops.pack_gates(gates[:, q % nq])
+        got = ops.apply_gate(re, im, g8, q)
+        want = ref.apply_gate_planes_ref(re, im, g8, q)
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        print(f"gate check G={G} S={S} nq={nq} q={q}: max_abs_err={err:.3e}")
+        if not err <= GATE_TOL:
+            raise PhaseError(f"gate kernel disagrees at G={G} S={S} nq={nq} "
+                             f"q={q}: {err}")
+        worst["statevec_gate_1q"] = max(worst["statevec_gate_1q"], err)
+    # the backward: the adjoint gate through the kernel + the plain cotangent
+    re, im, gates = _random_layer(torch, 3, 2, 14, seed=300)
+    g8 = ops.pack_gates(gates[:, 0])
+    w = torch.randn(2, 3, 2, 1 << 14, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    grads = []
+    for fn in (ops.apply_gate, ref.apply_gate_planes_ref):
+        for q in (1, 13):
+            args = [x.clone().requires_grad_(True) for x in (re, im, g8)]
+            out_r, out_i = fn(*args, q)
+            (w[0] * out_r + w[1] * out_i).sum().backward()
+            grads.append([a.grad for a in args])
+    grad_err = max((a - b).abs().max().item() for k, p in zip(grads[:2],
+                                                              grads[2:])
+                   for a, b in zip(k, p))
+    print(f"gate backward check nq=14 q=1,13: max_abs_err={grad_err:.3e}")
+    if not grad_err <= GRAD_TOL:
+        raise PhaseError(f"gate kernel backward disagrees: {grad_err}")
+
+    for i, (G, S, nq, low, gq, gt) in enumerate(TILED_SHAPES):
+        re, im, gates = _random_layer(torch, G, S, nq, seed=400 + i)
+        g8 = ops.pack_gates(gates)
+        got = ops.apply_gate_layer(re, im, g8, low_qubits=low,
+                                   group_qubits=gq, group_tile=gt)
+        if ops.LAYER_DEBUG["path"] != "tiled":
+            raise PhaseError(f"nq={nq} took the {ops.LAYER_DEBUG['path']} "
+                             f"plan, not the tiled one")
+        want = ref.apply_layer_planes_ref(re, im, g8)
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        # unitarity: the output's norm is the input's (summed in float64,
+        # since a float32 sum of 2^20 squares is itself ~1e-4 off)
+        sq = lambda r, i: (r.double() ** 2 + i.double() ** 2).sum(-1)
+        norm_err = (sq(*got) - sq(re, im)).abs().max().item()
+        print(f"tiled check G={G} S={S} nq={nq} low={low} group={gq} "
+              f"tile={gt}: max_abs_err={err:.3e} norm_err={norm_err:.3e}")
+        if not (err <= GATE_TOL and norm_err <= TOL):
+            raise PhaseError(f"tiled kernel disagrees at nq={nq}, low={low}: "
+                             f"{err}, norm {norm_err}")
+        worst["statevec_gate_tiled"] = max(worst["statevec_gate_tiled"], err)
+        del re, im, got, want
+
+    timings = {"statevec_gate_1q": {}, "statevec_gate_tiled": {}}
+    G, S, nq = 64, 32, 8
+    re, im, gates = _random_layer(torch, G, S, nq, seed=500)
+    state = torch.complex(re, im)
+    for q in range(nq):
+        g8 = ops.pack_gates(gates[:, q])
+        lo = 1 << q
+        view = state.reshape(G, S, -1, 2, lo)
+        u = gates[:, q].reshape(G, 1, 1, 2, 2)
+        lib = lambda: torch.matmul(u, view)
+        out, lib_out = ops.apply_gate(re, im, g8, q), lib().reshape(G, S, -1)
+        lib_err = max((lib_out.real - out[0]).abs().max().item(),
+                      (lib_out.imag - out[1]).abs().max().item())
+        call = lambda: ops.apply_gate(re, im, g8, q)
+        t = {"shape": [G, S, 1 << nq], "qubit": q,
+             "ms": _cuda_ms(torch, call, 200),
+             "device_ms": _device_ms(torch, call, 50),
+             "plain_ms": _cuda_ms(torch, lambda: ref.apply_gate_planes_ref(
+                 re, im, g8, q), 50),
+             "library_ms": _cuda_ms(torch, lib, 50),
+             "library_max_abs_err": lib_err,
+             **_sv_bound(G * S << nq, G * S << (nq - 1))}
+        timings["statevec_gate_1q"][f"q{q}"] = t
+        print(f"gate timing: " + json.dumps(t))
+    for name, (G, S, nq) in TILED_TIMED.items():
+        re, im, gates = _random_layer(torch, G, S, nq, seed=600)
+        g8 = ops.pack_gates(gates)
+        n_passes = 1 + len(ops.group_passes(nq))
+        call = lambda: ops.apply_gate_layer(re, im, g8)
+        amps = G * S << nq
+        t = {"shape": [G, S, 1 << nq], "passes": n_passes,
+             "ms": _cuda_ms(torch, call, 20),
+             "device_ms": _device_ms(torch, call, 10),
+             "plain_ms": _cuda_ms(torch, lambda: ref.apply_layer_planes_ref(
+                 re, im, g8), 3),
+             "library_ms": None,
+             # the kernel's own traffic: every pass reads and writes the
+             # state once
+             "pass_bytes_ms": n_passes * 16 * amps / HBM_BYTES_PER_S * 1e3,
+             **_sv_bound(amps, (amps >> 1) * nq)}
+        timings["statevec_gate_tiled"][name] = t
+        print(f"tiled timing {name}: " + json.dumps(t))
+        del re, im, gates, g8
+    torch.cuda.empty_cache()
+    return worst, grad_err, timings
+
+
 def _data(torch, n_sats):
     from repro_torch.data import dirichlet_partition, make_statlog, server_split
     X, y = make_statlog(n_features=8, device="cuda")
@@ -237,6 +419,7 @@ def _data(torch, n_sats):
     return dirichlet_partition(Xc, yc, n_sats), server
 
 
+SV_SOURCE = "src/repro_torch/kernels/statevec_gate/csrc/statevec_gate.cu"
 OTP_ROW_SHAPES = {"stage": (64, 62), "multiblock": (5, 16389),
                   "bandwidth": (64, 1 << 20)}
 OTP_STREAM_SHAPES = {"edge": 62, "stream": 16384 * 4 + 7}
@@ -288,8 +471,7 @@ def phase_otp_kernel(torch, ops, ref):
         big = E * n > 1 << 24
         call = lambda: ops.otp_xor_mac_rows(msg, pad, rk, sk)
         t = {"shape": [E, n], "ms": _cuda_ms(torch, call, 20 if big else 200),
-             "device_ms": _kernel_device_ms(torch, call,
-                                            "otp_xor_mac_kernel", 20),
+             "device_ms": _device_ms(torch, call, 20),
              "plain_ms": _cuda_ms(torch, lambda: ref.otp_xor_mac_rows_ref(
                  msg, pad, rk, sk), 3 if big else 20),
              **_otp_bound(E, n)}
@@ -312,8 +494,7 @@ def phase_otp_kernel(torch, ops, ref):
             worst["otp_xor_mac"] = max(worst["otp_xor_mac"], gap)
         call = lambda: ops.otp_xor_mac_stream(msg, pad, keys[0], keys[1])
         t = {"shape": [n], "ms": _cuda_ms(torch, call, 200),
-             "device_ms": _kernel_device_ms(torch, call,
-                                            "otp_xor_mac_kernel", 20),
+             "device_ms": _device_ms(torch, call, 20),
              "plain_ms": _cuda_ms(torch, lambda: ref.otp_xor_mac_rows_ref(
                  msg[None], pad[None], kt[:1], kt[1:]), 20),
              **_otp_bound(1, n)}
@@ -341,56 +522,101 @@ def phase_otp_kernel(torch, ops, ref):
     return worst, timings
 
 
-# name -> (mode, security, rounds, edge_batched)
+# name -> the path's config; "batched", "edge_batched" and "qubits" go to
+# the trainer and the model config, the rest to SatQFLConfig
 TRAINER_PATHS = {
-    "qfl": ("qfl", "none", 2, True),
-    "sim": ("sim", "none", 2, True),
-    "qfl_qkd": ("qfl", "qkd", 3, True),
-    "sim_qkd": ("sim", "qkd", 3, True),
-    "sim_qkd_fernet": ("sim", "qkd_fernet", 2, True),
-    "sim_qkd_oracle": ("sim", "qkd", 3, False),
+    "qfl": dict(mode="qfl", n_rounds=2),
+    "sim": dict(mode="sim", n_rounds=2),
+    "qfl_qkd": dict(mode="qfl", security="qkd", n_rounds=3),
+    "sim_qkd": dict(mode="sim", security="qkd", n_rounds=3),
+    "sim_qkd_fernet": dict(mode="sim", security="qkd_fernet", n_rounds=2),
+    "sim_qkd_oracle": dict(mode="sim", security="qkd", n_rounds=3,
+                           edge_batched=False),
+    "qfl_shift": dict(mode="qfl", grad_method="param_shift", n_rounds=2),
+    "sim_shift": dict(mode="sim", grad_method="param_shift", n_rounds=2),
+    "qfl_shift_oracle": dict(mode="qfl", grad_method="param_shift",
+                             n_rounds=1, batched=False),
+    "sim_shift_oracle": dict(mode="sim", grad_method="param_shift",
+                             n_rounds=1, batched=False),
+    "sim_qkd_shift": dict(mode="sim", security="qkd",
+                          grad_method="param_shift", n_rounds=2),
+    "sim_teleport": dict(mode="sim", security="teleport", n_rounds=2),
+    "sim_nq14": dict(mode="sim", n_rounds=1, qubits=14),
 }
+SV_KERNELS = ("statevec_gate_layer", "statevec_gate_tiled",
+              "statevec_gate_1q")
 
 
 def _counts(kops) -> dict:
     """Every kernel's launch count: ``kops`` holds the ops modules of the
-    gate-layer, OTP, attention and SSD kernels."""
+    statevector, OTP, attention and SSD kernels."""
     sv_ops, otp_ops, swa_ops, ssd_ops = kops
-    return {"statevec_gate_layer": sv_ops.LAUNCHES, **otp_ops.LAUNCHES,
+    return {"statevec_gate_layer": sv_ops.LAUNCHES,
+            "statevec_gate_tiled": sv_ops.TILED_LAUNCHES,
+            "statevec_gate_1q": sv_ops.GATE_LAUNCHES, **otp_ops.LAUNCHES,
             "swa_attention": swa_ops.LAUNCHES, "ssd_scan": ssd_ops.LAUNCHES}
 
 
 def _reset(kops):
     """Sets every kernel's launch count to 0."""
     sv_ops, otp_ops, swa_ops, ssd_ops = kops
-    sv_ops.LAUNCHES = swa_ops.LAUNCHES = ssd_ops.LAUNCHES = 0
+    sv_ops.LAUNCHES = sv_ops.TILED_LAUNCHES = sv_ops.GATE_LAUNCHES = 0
+    swa_ops.LAUNCHES = ssd_ops.LAUNCHES = 0
     swa_ops.LAUNCHES_BY_WINDOW.clear()
     for k in otp_ops.LAUNCHES:
         otp_ops.LAUNCHES[k] = 0
 
 
+def _path_kernels(spec: dict, edge_batched: bool, qubits: int) -> set:
+    """The kernels a trainer path must launch; it must launch no other."""
+    need = {"statevec_gate_layer" if qubits <= 13 else "statevec_gate_tiled"}
+    if spec.get("grad_method") == "param_shift":
+        need.add("statevec_gate_1q")
+    if spec.get("security") in ("qkd", "qkd_fernet"):
+        need.add("otp_xor_mac_edges" if edge_batched else "otp_xor_mac")
+    return need
+
+
+def _check_round_launches(path, spec, r, launches):
+    """Per-round counts the design fixes: #1 52 (qfl) and 92 (sim) a round
+    at 10 local steps under autodiff; under the shift rule 96 launches of
+    #3 (4·nq·L) for every 13 of #1 (1 + L + L²) in training, beside the 12
+    of evaluation."""
+    n1, n3 = launches["statevec_gate_layer"], launches["statevec_gate_1q"]
+    if path in ("qfl", "sim") and n1 != {"qfl": 52, "sim": 92}[path]:
+        raise PhaseError(f"{path} round {r}: {n1} gate-layer launches, "
+                         f"expected {52 if path == 'qfl' else 92}")
+    if (spec.get("grad_method") == "param_shift" and spec.get("qubits", 8) == 8
+            and (n1 - 12) * 96 != n3 * 13):
+        raise PhaseError(f"{path} round {r}: {n3} single-gate launches for "
+                         f"{n1} gate-layer launches, not 96 per 13")
+
+
 def phase_trainer(torch, kops, trace, sats, server):
-    """Every trainer path of the port at full width; counts each path's
-    launches of each kernel, set to 0 just before the path and read just
-    after. Holds the edge-batched secure plane against its per-edge
-    oracle, bit for bit."""
+    """Every trainer path of the port at the paper's scenario (and one at
+    14 qubits); counts each path's launches of each kernel, set to 0 just
+    before the path and read just after: each path must launch each kernel
+    it runs and no other. Holds the edge-batched secure plane against its
+    per-edge oracle, bit for bit."""
     from repro_torch.core import SatQFLConfig, SatQFLTrainer
     from repro_torch.models import get_config, get_model
-    cfg = get_config("vqc-satqfl")
-    api = get_model(cfg)
     report, launches, finals = {}, {}, {}
     for path, spec in TRAINER_PATHS.items():
-        mode, security, n_rounds, edge_batched = spec
-        fl = SatQFLConfig(mode=mode, security=security, n_rounds=n_rounds,
-                          local_steps=10, batch_size=32)
+        kw = dict(spec)
+        batched = kw.pop("batched", True)
+        edge_batched = kw.pop("edge_batched", True)
+        qubits = kw.pop("qubits", 8)
+        cfg = get_config("vqc-satqfl").replace(vqc_qubits=qubits)
+        fl = SatQFLConfig(local_steps=10, batch_size=32, **kw)
         t0 = time.perf_counter()
-        tr = SatQFLTrainer(cfg, api, fl, trace, sats, server,
-                           edge_batched=edge_batched, device="cuda")
+        tr = SatQFLTrainer(cfg, get_model(cfg), fl, trace, sats, server,
+                           batched=batched, edge_batched=edge_batched,
+                           device="cuda")
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         rounds = []
         _reset(kops)
-        for r in range(n_rounds):
+        for r in range(fl.n_rounds):
             before = _counts(kops)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -403,19 +629,23 @@ def phase_trainer(torch, kops, trace, sats, server):
                              _counts(kops).items()},
                 "val_loss": m.server_val_loss, "val_acc": m.server_val_acc,
                 "participants": m.participants, "comm_s": m.comm_s,
-                "security_s": m.security_s})
+                "security_s": m.security_s,
+                "teleport_fidelity": m.teleport_fidelity})
             print(f"trainer {path} " + json.dumps(rounds[-1]))
             if not (math.isfinite(m.server_val_loss)
                     and m.server_val_loss < 10.0):
                 raise PhaseError(f"{path} round {r}: val loss "
                                  f"{m.server_val_loss}")
+            if fl.security == "teleport" and not m.teleport_fidelity > 0.999:
+                raise PhaseError(f"{path} round {r}: teleport fidelity "
+                                 f"{m.teleport_fidelity}")
+            _check_round_launches(path, spec, r, rounds[-1]["launches"])
         launches[path] = _counts(kops)
-        needed = ["statevec_gate_layer"] + (
-            [] if security == "none" else
-            ["otp_xor_mac_edges" if edge_batched else "otp_xor_mac"])
-        for k in needed:
-            if launches[path][k] == 0:
-                raise PhaseError(f"the {path} trainer never launched {k}")
+        need = _path_kernels(spec, edge_batched, qubits)
+        for k, n in launches[path].items():
+            if (n > 0) != (k in need):
+                raise PhaseError(f"the {path} trainer launched {k} {n} "
+                                 f"times; it runs {sorted(need)}")
         report[path] = {"setup_s": setup_s, "rounds": rounds}
         finals[path] = tr
     a, b = finals["sim_qkd"], finals["sim_qkd_oracle"]
@@ -433,11 +663,173 @@ def phase_trainer(torch, kops, trace, sats, server):
     return launches, report
 
 
+@contextlib.contextmanager
+def _plain_gates(vqc, ref):
+    """Points the VQC's gate ops at their plain versions for the
+    kernel-vs-plain cross-check, and back."""
+    saved = vqc.apply_gate, vqc.apply_gate_layer
+    vqc.apply_gate = ref.apply_gate_planes_ref
+    vqc.apply_gate_layer = ref.apply_layer_planes_ref
+    try:
+        yield
+    finally:
+        vqc.apply_gate, vqc.apply_gate_layer = saved
+
+
+WIDE_QUBITS, WIDE_BATCH = 20, 4
+
+
+def phase_wide_vqc(torch, kops, ref):
+    """The VQC at 20 qubits through its entry points: a forward, an
+    autodiff gradient and a ``parameter_shift_grad`` of one batch of 4,
+    the launch counts set to 0 just before and read just after (the
+    tiled layer, 2 passes a layer, and the single gate at q >= 13); then
+    the same with the plain versions on the card: logits and both grads
+    ≤ 1e-5 of them, shift vs autodiff ≤ 2e-5 (the JAX package's
+    contract)."""
+    from repro_torch import prng
+    from repro_torch.core import SatQFLConfig
+    from repro_torch.core.gradients import make_grad_fn
+    from repro_torch.models import get_config, get_model
+    from repro_torch.quantum import vqc
+    cfg = get_config("vqc-satqfl").replace(vqc_qubits=WIDE_QUBITS)
+    api = get_model(cfg)
+    params = api.init(cfg, prng.PRNGKey(0, device="cuda"))
+    g = torch.Generator("cuda").manual_seed(20)
+    batch = {"features": math.pi * torch.rand(
+        WIDE_BATCH, cfg.n_features, device="cuda", generator=g),
+        "labels": torch.randint(0, cfg.n_classes, (WIDE_BATCH,),
+                                device="cuda", generator=g)}
+    autodiff = make_grad_fn(api, cfg, SatQFLConfig())
+
+    def run():
+        t = {}
+        for name, fn in (
+                ("forward", lambda: vqc.vqc_logits(cfg, params,
+                                                   batch["features"])),
+                ("autodiff", lambda: autodiff(params, batch)),
+                ("shift", lambda: vqc.parameter_shift_grad(
+                    cfg, params, batch, with_loss=True))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            t[name] = (out, time.perf_counter() - t0)
+        return t
+
+    run()                                                  # warm
+    _reset(kops)
+    got = run()
+    launches = _counts(kops)
+    with _plain_gates(vqc, ref):
+        want = run()
+    (lt, gt), (lp, gp) = got["shift"][0], want["shift"][0]
+    _, ga = got["autodiff"][0]
+    errs = {"logits": (got["forward"][0] - want["forward"][0]).abs().max(),
+            "autodiff": max((got["autodiff"][0][1][k]
+                             - want["autodiff"][0][1][k]).abs().max()
+                            for k in ga),
+            "shift": max((gt[k] - gp[k]).abs().max() for k in gt),
+            "shift_loss": (lt - lp).abs().max(),
+            "shift_vs_autodiff": max((gt[k] - ga[k]).abs().max() for k in gt)}
+    errs = {k: float(v) for k, v in errs.items()}
+    report = {"qubits": WIDE_QUBITS, "batch": WIDE_BATCH, "errors": errs,
+              "seconds": {k: v[1] for k, v in got.items()},
+              "plain_seconds": {k: v[1] for k, v in want.items()},
+              "launches": launches}
+    print("wide vqc: " + json.dumps(report))
+    want_n = {"statevec_gate_tiled": 2 * (1 + cfg.vqc_layers) * 2
+              + 2 * (1 + cfg.vqc_layers + cfg.vqc_layers ** 2),
+              "statevec_gate_1q": 4 * WIDE_QUBITS * cfg.vqc_layers}
+    if {k: launches[k] for k in want_n} != want_n or any(
+            n for k, n in launches.items() if k not in want_n):
+        raise PhaseError(f"wide vqc launches {launches}, expected {want_n}")
+    limits = {"logits": 1e-5, "autodiff": 1e-5, "shift": 1e-5,
+              "shift_loss": 1e-5, "shift_vs_autodiff": 2e-5}
+    bad = {k: v for k, v in errs.items() if not v <= limits[k]}
+    if bad:
+        raise PhaseError(f"wide vqc disagrees: {bad} (limits {limits})")
+    del params, got, want
+    torch.cuda.empty_cache()
+    return {"vqc_nq20": launches}, report
+
+
+# clients K of one local step (batch 32) on the batched executor and on the
+# per-client oracle
+SHIFT_STEP_CLIENTS = {"batched": 64, "oracle": 1}
+
+
+def phase_shift_step(torch, kops, ref):
+    """One local step of the parameter-shift rule at the trainer's full
+    width (8 qubits, 3 layers, batch 32) for K=64 clients (the batched
+    executor) and K=1 (the per-client oracle), through
+    ``parameter_shift_grad``, which the trainer's shift branch calls. Its
+    launches are counted from 0 (13 of #1, the suffix at (K, 512, 2^8), and
+    96 of #3 at (K, 32, 2^8); no other kernel); the loss and grads are held
+    against the same step with the plain versions on the card, on the same
+    inputs, ≤ 1e-5 (the gradients' limit)."""
+    from repro_torch import prng
+    from repro_torch.models import get_config, get_model
+    from repro_torch.quantum import vqc
+    cfg = get_config("vqc-satqfl")
+    api = get_model(cfg)
+    nq, L, B = cfg.vqc_qubits, cfg.vqc_layers, 32
+    want_n = {"statevec_gate_layer": 1 + L + L * L,
+              "statevec_gate_1q": 4 * nq * L}
+    report = {}
+    for name, K in SHIFT_STEP_CLIENTS.items():
+        g = torch.Generator("cuda").manual_seed(K)
+        base = api.init(cfg, prng.PRNGKey(K, device="cuda"))
+        # distinct clients: the shared init moved by a client's own noise
+        params = {k: v.expand(K, *v.shape) + 0.3 * torch.randn(
+            K, *v.shape, device="cuda", generator=g)
+            for k, v in base.items()}
+        batch = {"features": math.pi * torch.rand(
+            K, B, cfg.n_features, device="cuda", generator=g),
+            "labels": torch.randint(0, cfg.n_classes, (K, B),
+                                    device="cuda", generator=g)}
+        step = lambda: vqc.parameter_shift_grad(cfg, params, batch,
+                                                with_loss=True)
+        step()                                              # warm
+        torch.cuda.synchronize()
+        _reset(kops)
+        t0 = time.perf_counter()
+        got_loss, got = step()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _counts(kops)
+        with _plain_gates(vqc, ref):
+            step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want_loss, want = step()
+            torch.cuda.synchronize()
+            plain_seconds = time.perf_counter() - t0
+        errs = {k: float((got[k] - want[k]).abs().max()) for k in got}
+        errs["loss"] = float((got_loss - want_loss).abs().max())
+        finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+        report[name] = {"clients": K, "batch": B, "errors": errs,
+                        "seconds": seconds, "plain_seconds": plain_seconds,
+                        "launches": launches}
+        print(f"shift step {name}: " + json.dumps(report[name]))
+        if {k: launches[k] for k in want_n} != want_n or any(
+                n for k, n in launches.items() if k not in want_n):
+            raise PhaseError(f"shift step {name}: launches {launches}, "
+                             f"expected {want_n}")
+        bad = {k: v for k, v in errs.items() if not v <= GRAD_TOL}
+        if bad or not finite:
+            raise PhaseError(f"shift step {name} disagrees with plain: "
+                             f"{bad or 'non-finite grads'} (limit "
+                             f"{GRAD_TOL})")
+    return report
+
+
 def phase_cross_device(torch, trace, sats, server):
     """The same runs on the CPU (plain path) and on the card: sim without
-    security (1 round) and under qkd (2 rounds) within 1e-4 and with
-    equal accounting; one drop-mode round with forced eavesdroppers on
-    every edge of satellites 0-4, whose aborted edges must agree."""
+    security (1 round), under the parameter-shift rule (1 round of 2 local
+    steps of batch 8) and under qkd (2 rounds) within 1e-4 and with equal accounting; one drop-mode
+    round with forced eavesdroppers on every edge of satellites 0-4, whose
+    aborted edges must agree."""
     from repro_torch.core import SatQFLConfig, SatQFLTrainer
     from repro_torch.models import get_config, get_model
     from repro_torch.security import canonical_edge
@@ -445,12 +837,18 @@ def phase_cross_device(torch, trace, sats, server):
     eav = frozenset(canonical_edge((a, b)) for a in range(5)
                     for b in list(range(50)) + ["gs"] if a != b)
     cases = {"sim": (dict(security="none", n_rounds=1), frozenset()),
+             # the CPU's plain shift rule takes ~16 s a local step at
+             # full width (321 s for this round at 10 steps of batch 32):
+             # the cross-check runs 2 steps of batch 8
+             "sim_shift": (dict(grad_method="param_shift", n_rounds=1,
+                                local_steps=2, batch_size=8), frozenset()),
              "sim_qkd": (dict(security="qkd", n_rounds=2), frozenset()),
              "sim_qkd_drop": (dict(security="qkd", n_rounds=1,
                                    on_qber_abort="drop"), eav)}
     worst = {}
     for name, (kw, eavs) in cases.items():
-        fl = SatQFLConfig(mode="sim", local_steps=10, batch_size=32, **kw)
+        fl = SatQFLConfig(**{"mode": "sim", "local_steps": 10,
+                             "batch_size": 32, **kw})
         runs = {}
         for dev in ("cuda", "cpu"):
             t0 = time.perf_counter()
@@ -487,47 +885,36 @@ def phase_cross_device(torch, trace, sats, server):
     return worst
 
 
+# name -> the profiled path's config (as in TRAINER_PATHS)
+PROFILED_PATHS = {
+    "sim_qkd": dict(mode="sim", security="qkd"),
+    "sim_shift": dict(mode="sim", grad_method="param_shift"),
+    "sim_nq14": dict(mode="sim", qubits=14),
+}
+
+
 def phase_profile(torch, trace, sats, server):
-    """Where a round's time goes: torch.profiler over one warm secure sim
-    round (``security="qkd"``, the edge-batched plane).
+    """Where a round's time goes: torch.profiler over one warm round of
+    each of ``PROFILED_PATHS`` (the secure edge-batched plane, the
+    parameter-shift rule, a 14-qubit register).
 
     Measurement only (the profiler's own overhead inflates the round); a
     profiler that records no device time prints "not measured".
     """
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core import SatQFLConfig, SatQFLTrainer
     from repro_torch.models import get_config, get_model
-    cfg = get_config("vqc-satqfl")
-    fl = SatQFLConfig(mode="sim", security="qkd", n_rounds=2, local_steps=10,
-                      batch_size=32)
-    tr = SatQFLTrainer(cfg, get_model(cfg), fl, trace, sats, server,
-                       device="cuda")
-    tr.run_round(0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.run_round(1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side kernels only: the aten ops that launch them report the
-    # same device time again
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == DeviceType.CUDA
-              and _dev_us(e) > 0]
-    busy_s = sum(_dev_us(e) for e in events) / 1e6
-    if busy_s == 0:
-        print("profile: not measured (the profiler recorded no device time)")
-        return
-    top = sorted(events, key=_dev_us, reverse=True)[:10]
-    print("profile: " + json.dumps({
-        "round_s_under_profiler": wall, "device_busy_s": busy_s,
-        "device_busy_share": busy_s / wall,
-        "device_ops": sum(e.count for e in events),
-        "top": [{"name": e.key[:80], "device_ms": _dev_us(e) / 1e3,
-                 "count": e.count} for e in top]}))
+    for name, spec in PROFILED_PATHS.items():
+        kw = dict(spec)
+        cfg = get_config("vqc-satqfl").replace(vqc_qubits=kw.pop("qubits",
+                                                                 8))
+        fl = SatQFLConfig(n_rounds=2, local_steps=10, batch_size=32, **kw)
+        tr = SatQFLTrainer(cfg, get_model(cfg), fl, trace, sats, server,
+                           device="cuda")
+        tr.run_round(0)
+        prof = _device_profile(torch, lambda: tr.run_round(1))
+        print(f"profile {name}: " + (json.dumps(prof) if prof else
+                                     "not measured (the profiler recorded "
+                                     "no device time)"))
 
 
 # --------------------------------------------------------------------------
@@ -653,8 +1040,7 @@ def phase_swa_kernel(torch, ops, blocks):
             call = lambda: ops.swa_attention(q, k, v, W)
             t = {"shape": [B, S, H, KV, hd, W, dtype],
                  "ms": _cuda_ms(torch, call, 20),
-                 "device_ms": _kernel_device_ms(torch, call, "swa_fwd_kernel",
-                                                10),
+                 "device_ms": _device_ms(torch, call, 10),
                  "plain_ms": _cuda_ms(torch, lambda: ops.swa_attention_plain(
                      q, k, v, W), 5),
                  "library_ms": _cuda_ms(torch, lib, 20),
@@ -752,8 +1138,7 @@ def phase_ssd_kernel(torch, ops, blocks):
             call = lambda: ops.ssd_scan(*args, chunk=128)
             t = {"shape": [B, S, H, G, P, N, dtype],
                  "ms": _cuda_ms(torch, call, 20),
-                 "device_ms": _kernel_device_ms(torch, call,
-                                                "ssd_scan_kernel", 10),
+                 "device_ms": _device_ms(torch, call, 10),
                  "plain_ms": _cuda_ms(torch, lambda: blocks.ssd_ref(
                      *args, chunk=128), 5),
                  "library_ms": None, "bf16_steps": steps[name],
@@ -1003,6 +1388,7 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
 
     max_err, timings = phase_kernel(torch, ops, ref)
+    gate_err, gate_grad_err, gate_timings = phase_gate_kernels(torch, ops, ref)
     otp_err, otp_timings = phase_otp_kernel(torch, otp_ops, otp_ref)
     t0 = time.perf_counter()
     trace = build_trace(n_sats=50, n_planes=10, device="cuda")
@@ -1012,6 +1398,9 @@ def main() -> int:
     launches, report = phase_trainer(torch, kops, trace, sats, server)
     print(f"trainer launches by path: {json.dumps(launches)}")
     print("trainer report: " + json.dumps(report))
+    wide_launches, _ = phase_wide_vqc(torch, kops, ref)
+    launches.update(wide_launches)
+    phase_shift_step(torch, kops, ref)
     phase_cross_device(torch, trace, sats, server)
     phase_profile(torch, trace, sats, server)
     del trace, sats, server
@@ -1029,13 +1418,39 @@ def main() -> int:
     t = timings["ansatz"]
     entries = [{
         "name": "statevec_gate_layer", "route": "cuda",
-        "source": "src/repro_torch/kernels/statevec_gate/csrc/statevec_gate.cu",
+        "source": SV_SOURCE,
         "replaces": "src/repro/kernels/statevec_gate/kernel.py:170",
         "max_abs_err": max_err,
         "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+        "shapes": timings,
     }]
+    # kernel #3 at the shift rule's insertion shape, the mean over the 8
+    # qubits it is launched on (each equally often); kernel #2 at the
+    # 14-qubit round's ansatz layer, nq=20 beside it under "shapes"
+    by_q = gate_timings["statevec_gate_1q"]
+    mean = lambda key: (None if any(t[key] is None for t in by_q.values())
+                        else sum(t[key] for t in by_q.values()) / len(by_q))
+    q0 = next(iter(by_q.values()))
+    entries.append({
+        "name": "statevec_gate_1q", "route": "cuda", "source": SV_SOURCE,
+        "replaces": "src/repro/kernels/statevec_gate/kernel.py:94",
+        "max_abs_err": gate_err["statevec_gate_1q"],
+        "backward_max_abs_err": gate_grad_err,
+        "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+        "bound_ms": q0["bound_ms"], "bound_by": q0["bound_by"],
+        "library_ms": mean("library_ms"), "device_ms": mean("device_ms"),
+        "shapes": by_q})
+    t = gate_timings["statevec_gate_tiled"]["nq14_ansatz"]
+    entries.append({
+        "name": "statevec_gate_tiled", "route": "cuda", "source": SV_SOURCE,
+        "replaces": "src/repro/kernels/statevec_gate/kernel.py:234",
+        "max_abs_err": gate_err["statevec_gate_tiled"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+        "device_ms": t["device_ms"],
+        "shapes": gate_timings["statevec_gate_tiled"]})
     # the otp kernel at the shape its entry meets on the trainer's path:
     # a secure stage's (64, 62) rows; one edge's 62-word stream
     for name, replaces, main_shape in (

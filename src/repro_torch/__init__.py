@@ -10,9 +10,11 @@ pass ``device="cpu"`` to run on the CPU, where each kernel wrapper takes
 its plain PyTorch version.
 
 The port covers the trainer's main path: ``SatQFLTrainer`` in modes
-``qfl`` and ``sim`` under ``security`` none, qkd or qkd_fernet, training
-the paper's VQC with the fused gate layer running as a hand-written CUDA
-kernel (``repro_torch.kernels.statevec_gate``) and securing every model
+``qfl`` and ``sim`` under ``security`` none, qkd, qkd_fernet or teleport,
+training the paper's VQC by autodiff or the parameter-shift rule with its
+gate layers (resident, or tiled past 13 qubits) and the shift rule's
+single gates running as hand-written CUDA kernels
+(``repro_torch.kernels.statevec_gate``) and securing every model
 exchange with BB84 keys, threefry pads and the GF(2^31 - 1) MAC, the
 XOR and MAC fused in a second CUDA kernel (``repro_torch.kernels.otp_xor``).
 It also serves ``hymba-1.5b``, the hybrid attention ∥ Mamba-2 decoder of

@@ -1,10 +1,19 @@
 """Local-training gradient rule (port of ``repro.core.gradients``).
 
-``fl.grad_method='autodiff'`` is exact reverse mode through the simulator
-and the fused gate-layer op. With a leading client axis the model's loss
-is one value per client; one backward of their SUM gives every client its
-own gradient, because no client's loss depends on another client's
-parameters. ``'param_shift'`` is not ported yet (ROADMAP queue 1, item 9).
+``fl.grad_method`` selects how a satellite computes its local update:
+
+  autodiff     — exact reverse mode through the simulator and the fused
+                 gate-layer op. With a leading client axis the model's loss
+                 is one value per client; one backward of their SUM gives
+                 every client its own gradient, because no client's loss
+                 depends on another client's parameters.
+  param_shift  — the hardware-faithful ±π/2 parameter-shift rule (what a
+                 real QPU evaluates; Qiskit QNN's gradient). The model's
+                 ModelApi must expose ``shift_grad``: the VQC's rule takes
+                 the client axis as it is.
+
+Both return ``(loss, grads)`` with identical tree structure, so the
+optimizer update is untouched by the choice.
 """
 from __future__ import annotations
 
@@ -18,9 +27,14 @@ def make_grad_fn(api, model_cfg, fl):
     (one value per client under a client axis); grads match ``params``.
     """
     if fl.grad_method == "param_shift":
-        raise NotImplementedError(
-            "grad_method='param_shift' is not ported yet (ROADMAP queue 1, "
-            "item 9: teleport + parameter-shift)")
+        if api.shift_grad is None:
+            raise ValueError(
+                "grad_method='param_shift' needs ModelApi.shift_grad — "
+                "only quantum models define a parameter-shift rule")
+        # the shift rule's base sweep already evaluates the batch: it
+        # reports the loss itself rather than paying a second forward
+        return lambda p, batch: api.shift_grad(
+            model_cfg, p, batch, chunk=fl.shift_chunk, with_loss=True)
     if fl.grad_method != "autodiff":
         raise ValueError(f"unknown grad_method {fl.grad_method!r}")
 

@@ -237,10 +237,6 @@ def check_supported(fl: SatQFLConfig):
         raise NotImplementedError(
             f"mode={fl.mode!r} is not ported yet (ROADMAP queue 1, item 7: "
             f"seq + async v2 + secagg)")
-    if fl.security == "teleport":
-        raise NotImplementedError(
-            "security='teleport' is not ported yet (ROADMAP queue 1, "
-            "item 9: teleport + parameter-shift)")
     if fl.agg_security != "none":
         raise NotImplementedError(
             "agg_security='secagg' is not ported yet (ROADMAP queue 1, "

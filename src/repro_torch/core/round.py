@@ -1,6 +1,6 @@
 """Host-orchestrated sat-QFL rounds — paper Algorithm 1 (port of
-``repro.core.round``, modes ``qfl`` and ``sim``, security none, qkd and
-qkd_fernet).
+``repro.core.round``, modes ``qfl`` and ``sim``, security none, qkd,
+qkd_fernet and teleport; gradients by autodiff or parameter shift).
 
 Roles, groups, weights and the exchange stages come from the compiled
 :class:`~repro_torch.core.plan.RoundPlan`; every transfer is accounted by
@@ -40,6 +40,7 @@ parameter-shift gradient (item 9).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -61,6 +62,7 @@ from repro_torch.nn.optim import (
 )
 from repro_torch.nn.pytree import (tree_bytes, tree_leaves, tree_map,
                                    tree_weighted_sum)
+from repro_torch.quantum.teleport import teleport_params
 from repro_torch.security.errors import SecurityError
 from repro_torch.security.fernet_lite import (
     TOKEN_OVERHEAD, InvalidToken, fernet_decrypt, fernet_decrypt_rows,
@@ -90,6 +92,13 @@ def evaluate(api, model_cfg, params, batch) -> tuple[float, float]:
     loss = torch.mean(lse - ll)
     acc = torch.mean((torch.argmax(lf, -1) == labels).to(torch.float32))
     return float(loss), float(acc)
+
+
+def _jnp_mod(x: torch.Tensor, m: float) -> torch.Tensor:
+    """``jnp.remainder`` (the sign of the divisor) from the exact fmod, as
+    XLA computes it; torch's ``%`` rounds differently."""
+    r = torch.fmod(x, m)                      # m > 0
+    return torch.where(r < 0, r + m, r)
 
 
 def _next_pow2(n: int) -> int:
@@ -134,9 +143,10 @@ class SatQFLTrainer:
         # every batched dispatch is padded to ONE fixed frame of rows
         self._frame = _next_pow2(self.n_sats)
 
-        # the JAX package's key schedule: init from split(PRNGKey(seed)),
-        # local training from fold_in(PRNGKey(seed), 0x5A7) per (round, sat)
-        init_key = prng.split(prng.PRNGKey(fl.seed, dev))[1]
+        # the JAX package's key schedule: the trainer's key (teleport
+        # draws) and init from split(PRNGKey(seed)), local training from
+        # fold_in(PRNGKey(seed), 0x5A7) per (round, sat)
+        self.key, init_key = prng.split(prng.PRNGKey(fl.seed, dev))
         self._train_key = prng.fold_in(prng.PRNGKey(fl.seed, dev), 0x5A7)
         self.global_params = api.init(model_cfg, init_key)
         self._row_nbytes = tree_bytes(self.global_params)
@@ -174,6 +184,7 @@ class SatQFLTrainer:
                                  eavesdrop_edges=eavesdrop_edges)
         self._qkd_established: set = set()
         self.aborted_edges: set = set()         # QBER aborts, per edge
+        self._last_fidelity = None      # mean fidelity, last teleport edge
         # the edge-batched secure plane covers the OTP(+MAC) modes; the
         # per-edge loop stays as the numerics/accounting oracle
         self.edge_batched = (edge_batched
@@ -183,7 +194,8 @@ class SatQFLTrainer:
         self._batched_train = make_batched_local_train(api, model_cfg, fl,
                                                        self.opt)
         # the whole schedule, with every edge key established in one
-        # batched BB84 when the exchange is secured
+        # batched BB84 when the exchange is secured (teleport too: its
+        # exchanges abort on compromised edges like the OTP modes')
         self.plan: RoundPlan = compile_round_plan(
             trace, fl, sample_counts=counts,
             keymgr=self.keymgr if fl.security != "none" else None)
@@ -306,6 +318,8 @@ class SatQFLTrainer:
 
         t += self._transfer_s(nbytes, link, concurrent)
         self.log.count_transfer(nbytes)   # wall time recorded per round
+        if fl.security == "teleport":
+            return params, t + self._teleport(params)
         seed = int(ek.round_seed(round_idx))
         received = self._secure_edge(params, seed, *ek.mac_keys(round_idx),
                                      ek.edge)
@@ -322,6 +336,23 @@ class SatQFLTrainer:
             tc += 2 * self.comm.crypto_time(len(tok))
         self.log.add_security(tc)
         return received, t + tc
+
+    def _teleport(self, params) -> float:
+        """Teleport a sample of (θ, φ) angle pairs of the payload (the
+        feasibility primitive): records the mean fidelity and returns the
+        classical channel's time."""
+        flat = torch.cat([x.reshape(-1).to(torch.float32)
+                          for x in tree_leaves(params)])
+        n = min(self.fl.teleport_pairs, flat.shape[0] // 2)
+        thetas = torch.clamp(_jnp_mod(torch.abs(flat[:n]), math.pi), 0.0,
+                             math.pi)
+        phis = _jnp_mod(flat[n:2 * n] + math.pi, 2 * math.pi) - math.pi
+        self.key, k = prng.split(self.key)
+        _, _, fid = teleport_params(k, thetas, phis)
+        self._last_fidelity = float(fid)
+        tt = self.comm.teleport_time(n)
+        self.log.add_security(tt)
+        return tt
 
     def _secure_edge(self, params, seed: int, mac_r: int, mac_s: int,
                      edge: tuple):
@@ -696,6 +727,8 @@ class SatQFLTrainer:
         m.comm_s = self.log.total_s - round_t0
         m.security_s = self.log.security_s - sec_t0
         self.log.close_round()
+        if self._last_fidelity is not None:
+            m.teleport_fidelity = self._last_fidelity
 
         if r % fl.eval_every == 0:
             m.server_val_loss, m.server_val_acc = evaluate(

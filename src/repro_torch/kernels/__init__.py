@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, one package per TPU kernel.
 
-  statevec_gate — the fused single-qubit gate layer over batched
-                  statevectors (the VQC's inner loop), in CUDA C++
+  statevec_gate — the resident and tiled single-qubit gate layers and
+                  the single gate over batched statevectors (the VQC's
+                  inner loop and its parameter-shift branches), in CUDA C++
   otp_xor       — the fused OTP-XOR + GF(2^31 - 1) MAC over every edge
                   stream of a secure-exchange stage, in CUDA C++
   swa_attention — sliding-window / causal flash attention of the LLM

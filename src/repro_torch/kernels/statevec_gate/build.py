@@ -1,4 +1,4 @@
-"""Build and bind the statevec_gate CUDA kernel (see ``kernels.build``)."""
+"""Build and bind the statevec_gate CUDA kernels (see ``kernels.build``)."""
 from __future__ import annotations
 
 import ctypes
@@ -8,6 +8,17 @@ from pathlib import Path
 from repro_torch.kernels import build as kbuild
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "statevec_gate.cu"
+
+_PTRS = [ctypes.c_void_p] * 5
+_INT = ctypes.c_int
+_LL = ctypes.c_longlong
+_STREAM = ctypes.c_void_p
+# entry -> its arguments after the five plane and gate pointers
+_SIGNATURES = {
+    "statevec_gate_layer": [_LL, _INT, _INT, _INT, _STREAM],
+    "statevec_gate_group": [_LL, _LL, _INT, _INT, _INT, _INT, _STREAM],
+    "statevec_gate_1q": [_LL, _INT, _INT, _INT, _STREAM],
+}
 
 
 def build() -> Path:
@@ -19,8 +30,8 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     lib = kbuild.load(SOURCE)
-    fn = lib.statevec_gate_layer
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name, args in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = _PTRS + args
+        fn.restype = ctypes.c_int
     return lib

@@ -1,10 +1,13 @@
-"""Plain PyTorch version of the fused gate layer (planes formulation).
+"""Plain PyTorch versions of the statevector gate kernels (planes
+formulation).
 
-The oracle the CUDA kernel is held against on the card, the CPU path of
-the wrapper, and the function whose autograd the layer's backward
+The oracles the CUDA kernels are held against on the card, the CPU path
+of the wrappers, and the function whose autograd the layer's backward
 replays (as ``repro.kernels.statevec_gate.ops._layer_bwd`` replays
-``apply_layer_planes_ref``). Gates are packed as 8 float32 reals,
-[g00r, g00i, g01r, g01i, g10r, g10i, g11r, g11i].
+``apply_layer_planes_ref``). ``adjoint_gate8`` and ``gate_grad`` are the
+math of the single gate's backward (``ops._bwd``). Gates are packed as 8
+float32 reals, [g00r, g00i, g01r, g01i, g10r, g10i, g11r, g11i]. Every
+function is valid at any register size.
 """
 from __future__ import annotations
 
@@ -43,3 +46,30 @@ def apply_layer_planes_ref(state_re, state_im, gates8):
         state_re, state_im = apply_gate_planes_ref(
             state_re, state_im, gates8[..., q, :], q)
     return state_re, state_im
+
+
+def adjoint_gate8(gate8):
+    """Conjugate transpose in the 8-real packing: gate8 (..., 8)."""
+    g00r, g00i, g01r, g01i, g10r, g10i, g11r, g11i = gate8.unbind(-1)
+    return torch.stack([g00r, -g00i, g10r, -g10i, g01r, -g01i, g11r, -g11i],
+                       dim=-1)
+
+
+def gate_grad(state_re, state_im, cot_re, cot_im, qubit: int):
+    """Cotangent of the 8 gate reals (the real-linear transpose of
+    ``apply_gate_planes_ref``): planes (G, ..., dim) whose row g took gate
+    g -> (G, 8), summed over every other axis and over the pairs."""
+    G = state_re.shape[0]
+    lo = 1 << qubit
+    ar, ai, yr, yi = (x.reshape(G, -1, 2, lo)
+                      for x in (state_re, state_im, cot_re, cot_im))
+
+    def pair(i, j):
+        # g_ij couples y_i with a_j:
+        # gr_ij = sum(yr_i*ar_j + yi_i*ai_j); gi_ij = sum(-yr_i*ai_j + yi_i*ar_j)
+        gr = (yr[:, :, i] * ar[:, :, j] + yi[:, :, i] * ai[:, :, j]).sum((1, 2))
+        gi = (-yr[:, :, i] * ai[:, :, j] + yi[:, :, i] * ar[:, :, j]).sum((1, 2))
+        return gr, gi
+
+    return torch.stack([x for i in (0, 1) for j in (0, 1) for x in pair(i, j)],
+                       dim=-1)

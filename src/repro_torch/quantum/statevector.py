@@ -3,18 +3,21 @@
 States are complex64 tensors of shape (..., 2**n) with little-endian qubit
 order (qubit 0 is the least-significant index bit), as in the JAX
 package. These functions are the plain simulator: the per-gate oracle of
-the VQC and the reference its fused kernel path is held against. The
+the VQC, the reference its fused kernel path is held against, and the
+teleport primitive's 3-qubit register (gates, CNOT, measurement). The
 trainer's hot path keeps states as float32 (re, im) planes instead and
 applies whole gate layers through ``repro_torch.kernels.statevec_gate``.
 """
 from __future__ import annotations
 
+import math
 import string
 from functools import lru_cache
 
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.device import resolve_device
 
 CDTYPE = torch.complex64
@@ -23,6 +26,12 @@ CDTYPE = torch.complex64
 # ---------------------------------------------------------------------------
 # gates
 # ---------------------------------------------------------------------------
+
+# fixed gates on the CPU; the apply_* functions move them to the state
+H = (1.0 / math.sqrt(2.0)) * torch.tensor([[1, 1], [1, -1]], dtype=CDTYPE)
+X = torch.tensor([[0, 1], [1, 0]], dtype=CDTYPE)
+Z = torch.tensor([[1, 0], [0, -1]], dtype=CDTYPE)
+
 
 def ry_gate(theta: torch.Tensor) -> torch.Tensor:
     t = torch.as_tensor(theta).to(torch.float32) / 2
@@ -38,6 +47,22 @@ def rz_gate(phi: torch.Tensor) -> torch.Tensor:
     zero = torch.zeros_like(e_m)
     return torch.stack([torch.stack([e_m, zero], -1),
                         torch.stack([zero, e_p], -1)], -2)
+
+
+def u3_gate(theta, phi, lam) -> torch.Tensor:
+    """Standard U(θ, φ, λ) — the paper's parameter-encoding unitary (Alg.
+    2/4); the angles broadcast, on the device of ``theta``."""
+    t = torch.as_tensor(theta).to(torch.float32) / 2
+    c = torch.cos(t).to(CDTYPE)
+    s = torch.sin(t).to(CDTYPE)
+    phi = torch.as_tensor(phi, device=t.device).to(torch.float32).to(CDTYPE)
+    lam = torch.as_tensor(lam, device=t.device).to(torch.float32).to(CDTYPE)
+    c, s, phi, lam = torch.broadcast_tensors(c, s, phi, lam)
+    return torch.stack([
+        torch.stack([c, -torch.exp(1j * lam) * s], -1),
+        torch.stack([torch.exp(1j * phi) * s, torch.exp(1j * (phi + lam)) * c],
+                    -1),
+    ], -2)
 
 
 # ---------------------------------------------------------------------------
@@ -67,6 +92,15 @@ def apply_1q(state: torch.Tensor, gate: torch.Tensor,
     return out.reshape(lead + (dim,))
 
 
+def apply_h(state: torch.Tensor, qubit: int) -> torch.Tensor:
+    return apply_1q(state, H.to(state.device), qubit)
+
+
+def apply_u3(state: torch.Tensor, theta, phi, lam,
+             qubit: int) -> torch.Tensor:
+    return apply_1q(state, u3_gate(theta, phi, lam).to(state.device), qubit)
+
+
 def _bit(idx, q):
     return (idx >> q) & 1
 
@@ -76,6 +110,14 @@ def apply_cz(state: torch.Tensor, q1: int, q2: int) -> torch.Tensor:
     idx = torch.arange(state.shape[-1], device=state.device)
     sign = torch.where((_bit(idx, q1) & _bit(idx, q2)) == 1, -1.0, 1.0)
     return state * sign.to(CDTYPE)
+
+
+def apply_cnot(state: torch.Tensor, control: int,
+               target: int) -> torch.Tensor:
+    """CNOT via the partner index: swap amplitudes where control=1."""
+    idx = torch.arange(state.shape[-1], device=state.device)
+    swapped = state[..., idx ^ (1 << target)]
+    return torch.where(_bit(idx, control) == 1, swapped, state)
 
 
 # ---------------------------------------------------------------------------
@@ -180,3 +222,29 @@ def expect_z(state: torch.Tensor, qubit: int) -> torch.Tensor:
     idx = torch.arange(state.shape[-1], device=state.device)
     sign = torch.where(_bit(idx, qubit) == 0, 1.0, -1.0)
     return torch.sum(probs(state) * sign, dim=-1)
+
+
+def measure_qubit(key: torch.Tensor, state: torch.Tensor, qubit: int):
+    """Projective measurement of one qubit: (outcome int32, collapsed and
+    renormalised state). One key (2,) measures the whole batch; keys
+    (..., 2) matching the state's leading dims measure each state with its
+    own key, as the JAX package's function does under ``vmap``. The draw
+    is ``prng.uniform``, bit-exact with ``jax.random.uniform``."""
+    p = probs(state)
+    mask1 = _bit(torch.arange(state.shape[-1], device=state.device),
+                 qubit) == 1
+    p1 = torch.sum(torch.where(mask1, p, 0.0), dim=-1)
+    u = prng.uniform(key, tuple(p1.shape[key.dim() - 1:]))
+    outcome = (u < p1).to(torch.int32)
+    keep = torch.where(outcome[..., None] == 1, mask1, ~mask1)
+    collapsed = torch.where(keep, state, torch.zeros((), dtype=state.dtype,
+                                                     device=state.device))
+    norm = torch.sqrt(torch.sum(probs(collapsed), dim=-1, keepdim=True))
+    return outcome, div_real(collapsed, torch.clamp(norm, min=1e-30))
+
+
+def div_real(z: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Complex ``z`` over real ``r``, part by part: what XLA's complex
+    division computes for a divisor with zero imaginary part (torch's
+    complex division rounds differently)."""
+    return torch.complex(z.real / r, z.imag / r)

@@ -79,6 +79,165 @@ def test_layer_kernel_gradients_match_plain():
         assert (a - b).abs().max().item() <= 1e-5
 
 
+def _sv_counts():
+    return ops.LAUNCHES, ops.TILED_LAUNCHES, ops.GATE_LAUNCHES
+
+
+def _gate8(G, seed):
+    """Random unitary gates packed (G, 8), on the card."""
+    rng = np.random.default_rng(seed)
+    th, ph, la = rng.uniform(-3, 3, (3, G))
+    c, s = np.cos(th / 2), np.sin(th / 2)
+    g = np.stack([np.stack([c, -np.exp(1j * la) * s], -1),
+                  np.stack([np.exp(1j * ph) * s,
+                            np.exp(1j * (ph + la)) * c], -1)], -2)
+    return ops.pack_gates(torch.tensor(g.astype(np.complex64),
+                                       device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,S,nq,q", [
+    (64, 32, 8, 0), (64, 32, 8, 3), (64, 32, 8, 7),     # the shift insertions
+    (4, 3, 5, 4), (3, 1, 1, 0),
+    (2, 2, 14, 13), (1, 3, 15, 14), (1, 1, 16, 15),     # stride spans tiles
+    (2, 1, 16, 2), (1, 4, 20, 17)])
+def test_gate_kernel_matches_plain(G, S, nq, q):
+    """Kernel #3 == the plain version, ≤ 2e-6, with the stride inside a
+    warp's segment (q < 5) and past 2^13 (q ≥ 13); one launch of it and
+    none of the layer kernels."""
+    _need_cuda()
+    re, im, _ = _layer_inputs(G, S, nq, seed=nq + q)
+    g8 = _gate8(G, seed=q)
+    before = _sv_counts()
+    got = ops.apply_gate(re, im, g8, q)
+    assert _sv_counts() == (before[0], before[1], before[2] + 1)
+    want = ref.apply_gate_planes_ref(re, im, g8, q)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 13])
+def test_gate_kernel_gradients_match_plain(q):
+    """Kernel #3's backward (the adjoint gate through the kernel plus the
+    plain gate cotangent) == autograd through the plain version, ≤ 1e-5."""
+    _need_cuda()
+    G, S, nq = 3, 2, 14
+    re, im, _ = _layer_inputs(G, S, nq, seed=5)
+    g8 = _gate8(G, seed=6)
+    w = torch.randn(2, G, S, 2 ** nq, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    grads = []
+    for fn in (ops.apply_gate, ref.apply_gate_planes_ref):
+        args = [x.clone().requires_grad_(True) for x in (re, im, g8)]
+        before = ops.GATE_LAUNCHES
+        out_r, out_i = fn(*args, q)
+        (w[0] * out_r + w[1] * out_i).sum().backward()
+        grads.append([a.grad for a in args])
+        if fn is ops.apply_gate:
+            assert ops.GATE_LAUNCHES == before + 2     # forward, adjoint
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,S,nq,low,gq,gt,passes", [
+    (1, 1, 6, 3, 2, 4, 3), (2, 3, 8, 4, 3, 8, 3), (3, 2, 9, 5, 4, 16, 2),
+    (64, 32, 14, 13, 7, 512, 2), (3, 2, 16, 13, 7, 512, 2),
+    (1, 4, 20, 13, 7, 512, 2), (2, 1, 20, 13, 3, 512, 4)])
+def test_tiled_layer_kernel_matches_plain(G, S, nq, low, gq, gt, passes):
+    """Kernel #2 == the plain layer, ≤ 2e-6: the JAX tests' forced small
+    tiles (several passes at small nq) and the wide registers (nq 14, 16,
+    20); one launch per pass and none of the other kernels."""
+    _need_cuda()
+    re, im, g8 = _layer_inputs(G, S, nq, seed=nq)
+    before = _sv_counts()
+    got = ops.apply_gate_layer(re, im, g8, low_qubits=low, group_qubits=gq,
+                               group_tile=gt)
+    assert ops.LAYER_DEBUG["path"] == "tiled"
+    assert _sv_counts() == (before[0], before[1] + passes, before[2])
+    want = ref.apply_layer_planes_ref(re, im, g8)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 2e-6
+
+
+@pytest.mark.cuda
+def test_per_gate_plan_runs_the_gate_kernel(caplog):
+    """A non-power-of-two group tile takes the loud per-gate plan: kernel
+    #3 once per qubit on the card, a warning and LAYER_DEBUG."""
+    _need_cuda()
+    import logging
+    re, im, g8 = _layer_inputs(2, 2, 14, seed=3)
+    before = _sv_counts()
+    with caplog.at_level(logging.WARNING, logger=ops.__name__):
+        got = ops.apply_gate_layer(re, im, g8, group_tile=3)
+    assert ops.LAYER_DEBUG["path"] == "per-gate"
+    assert any("per-gate" in r.message for r in caplog.records)
+    assert _sv_counts() == (before[0], before[1], before[2] + 14)
+    want = ref.apply_layer_planes_ref(re, im, g8)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 2e-6
+
+
+@pytest.mark.cuda
+def test_resident_layer_counts_only_its_kernel():
+    _need_cuda()
+    re, im, g8 = _layer_inputs(4, 3, 8, seed=2)
+    before = _sv_counts()
+    ops.apply_gate_layer(re, im, g8)
+    assert ops.LAYER_DEBUG["path"] == "resident"
+    assert _sv_counts() == (before[0] + 1, before[1], before[2])
+
+
+@pytest.mark.cuda
+def test_tiled_layer_gradients_replay_the_plain_version():
+    _need_cuda()
+    re, im, g8 = _layer_inputs(2, 2, 14, seed=4)
+    w = torch.randn(2, 2, 2, 2 ** 14, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1))
+    grads = []
+    for fn in (ops.apply_gate_layer, ref.apply_layer_planes_ref):
+        args = [x.clone().requires_grad_(True) for x in (re, im, g8)]
+        out_r, out_i = fn(*args)
+        (w[0] * out_r + w[1] * out_i).sum().backward()
+        grads.append([a.grad for a in args])
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_parameter_shift_on_the_card_matches_the_cpu():
+    """The shift rule's launches per step (4·nq·L of #3, 1 + L + L² of #1)
+    and its loss and grads == the same rule on the CPU (plain versions),
+    ≤ 1e-5: each branch value sums B · 2^nq products in another order on
+    the card, where nvcc also contracts the butterflies into FMAs."""
+    _need_cuda()
+    from repro_torch.models import get_config
+    from repro_torch.quantum.vqc import parameter_shift_grad
+    cfg = get_config("vqc-satqfl")
+    nq, L = cfg.vqc_qubits, cfg.vqc_layers
+    rng = np.random.default_rng(0)
+    K, B = 4, 32
+    params = {"theta": rng.uniform(0, 3, (K, L, nq)),
+              "phi": rng.uniform(0, 3, (K, L, nq)),
+              "w_out": rng.uniform(1, 3, (K, 7)), "b_out": rng.normal(size=(K, 7))}
+    params = {k: torch.tensor(v.astype(np.float32)) for k, v in params.items()}
+    batch = {"features": torch.tensor(rng.uniform(0, 3, (K, B, 8)).astype(
+        np.float32)), "labels": torch.tensor(rng.integers(0, 7, (K, B)))}
+    on = lambda t: {k: v.cuda() for k, v in t.items()}
+    before = _sv_counts()
+    loss, g = parameter_shift_grad(cfg, on(params), on(batch), with_loss=True)
+    assert _sv_counts() == (before[0] + 1 + L + L * L, before[1],
+                            before[2] + 4 * nq * L)
+    loss_c, g_c = parameter_shift_grad(cfg, params, batch, with_loss=True)
+    assert (loss.cpu() - loss_c).abs().max().item() <= 1e-5
+    for k in g:
+        assert (g[k].cpu() - g_c[k]).abs().max().item() <= 1e-5, k
+
+
 def _words(shape, seed):
     rng = np.random.default_rng(seed)
     a = rng.integers(0, 2 ** 32, shape, dtype=np.uint32).view(np.int32)

@@ -112,7 +112,7 @@ def test_config_rejections_match(bad):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mode="seq"), "item 7"), (dict(mode="async"), "item 7"),
-    (dict(security="teleport"), "item 9"),
+    (dict(straggler_rate=0.1), "item 8"),
     (dict(mode="async", agg_security="secagg"), "item 7"),
     (dict(crash_rate=0.1), "item 8"), (dict(link_flap_rate=0.1), "item 8")])
 def test_plan_refuses_what_is_not_ported(traces, kw, item):
@@ -143,6 +143,23 @@ def test_keyed_edge_schedule_matches_jax(traces, mode, eav):
     es = pt.edges
     assert es.with_keys and es.abort.any() == bool(eav)
     assert not es.abort[~es.mask].any()
+
+
+@pytest.mark.parametrize("mode", ["qfl", "sim"])
+def test_teleport_plan_matches_jax(traces, mode):
+    """Teleport security compiles the keyed plan too (the JAX trainer hands
+    its registry over whenever security is not 'none'): its abort masks
+    and key columns equal the JAX plan's."""
+    jt, _ = traces
+    fl = dict(mode=mode, n_rounds=4, security="teleport")
+    pj = jax_compile(jt, JaxConfig(**fl), with_seeds=False,
+                     keymgr=JaxKeyManager(jax.random.PRNGKey(7),
+                                          eavesdrop_edges=EAV))
+    pt = compile_round_plan(_as_port_trace(jt), SatQFLConfig(**fl),
+                            keymgr=KeyManager(prng.PRNGKey(7, "cpu"),
+                                              eavesdrop_edges=EAV))
+    _assert_plans_equal(pt, pj)
+    assert pt.edges.with_keys and pt.edges.abort.any()
 
 
 @pytest.mark.parametrize("mode", ["qfl", "sim"])

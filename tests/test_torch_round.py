@@ -12,6 +12,13 @@ within 1e-6 of the JAX trainer, accounting and QBER-abort sets exactly
 equal, the port's edge-batched plane bit-exact against its per-edge
 oracle, and the raise paths (QBER abort, MAC mismatch) raising
 ``SecurityError`` with the failing edges.
+
+Item 9 runs on the same 12-satellite fixture: the parameter-shift
+gradient (qfl and sim, batched executor and per-client oracle, each
+against the JAX trainer's same executor) and teleport security (sim):
+per-round metrics, ``teleport_fidelity`` and params within 1e-6 of the
+JAX trainer, accounting exactly equal, and the trainer's teleport key
+stream bit-equal.
 """
 import dataclasses
 
@@ -121,9 +128,8 @@ def test_batched_matches_per_client_oracle(world, mode):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mode="seq"), "item 7"), (dict(security="teleport"), "item 9"),
-    (dict(straggler_rate=0.2), "item 8"),
-    (dict(grad_method="param_shift"), "item 9")])
+    (dict(mode="seq"), "item 7"), (dict(mode="async"), "item 7"),
+    (dict(straggler_rate=0.2), "item 8"), (dict(crash_rate=0.1), "item 8")])
 def test_trainer_refuses_what_is_not_ported(world, kw, item):
     _, port, _ = world
     with pytest.raises(NotImplementedError, match=item):
@@ -151,9 +157,8 @@ EAV = frozenset(canonical_edge((a, b)) for a in range(3)
                 for b in list(range(SEC_SATS)) + ["gs"] if a != b)
 
 
-@pytest.fixture(scope="module")
-def secure_world():
-    """The JAX runs of every secure case once, and a cached port runner."""
+def _secure_setup():
+    """The 12-satellite trace, configs and data, in both packages."""
     jtrace = build_trace(n_sats=SEC_SATS, n_planes=4, duration_s=1800,
                          step_s=60)
     trace = ConstellationTrace(**{f.name: getattr(jtrace, f.name)
@@ -163,6 +168,18 @@ def secure_world():
     X, y = make_statlog(n_features=4)
     Xc, yc, server = server_split(X, y)
     sats = dirichlet_partition(Xc, yc, SEC_SATS)
+    cfg = get_config("vqc-satqfl").replace(**SEC_SMALL)
+    tX, ty = tdata.make_statlog(n_features=4, device="cpu")
+    tXc, tyc, tserver = tdata.server_split(tX, ty)
+    tsats = tdata.dirichlet_partition(tXc, tyc, SEC_SATS)
+    return (jtrace, cfg_j, sats, server), (trace, cfg, tsats, tserver)
+
+
+@pytest.fixture(scope="module")
+def secure_world():
+    """The JAX runs of every secure case once, and a cached port runner."""
+    (jtrace, cfg_j, sats, server), (trace, cfg, tsats, tserver) = \
+        _secure_setup()
     cases = [(m, s, frozenset(), "raise") for m, s in SECURE] + [
         (m, "qkd", EAV, "drop") for m in ("sim", "qfl")]
     jax_runs = {}
@@ -173,10 +190,6 @@ def secure_world():
                         jtrace, sats, server, eavesdrop_edges=eav)
         tr.run()
         jax_runs[(mode, sec, eav)] = tr
-    cfg = get_config("vqc-satqfl").replace(**SEC_SMALL)
-    tX, ty = tdata.make_statlog(n_features=4, device="cpu")
-    tXc, tyc, tserver = tdata.server_split(tX, ty)
-    tsats = tdata.dirichlet_partition(tXc, tyc, SEC_SATS)
     cache = {}
 
     def make(mode, security, eav=frozenset(), edge_batched=True,
@@ -293,3 +306,71 @@ def test_secure_stage_rejects_a_tampered_row(secure_world):
     out, ok = tr._secure_stage(stacked, seeds, mac, mac[::-1].copy(), tamper)
     assert ok.tolist() == [True, False, True, False]
     _assert_bit_equal(out, stacked)
+
+
+# ---------------------------------------------------------------------------
+# item 9: the parameter-shift gradient and teleport security
+# ---------------------------------------------------------------------------
+
+ITEM9 = [("qfl", "none", "param_shift", True),
+         ("qfl", "none", "param_shift", False),
+         ("sim", "none", "param_shift", True),
+         ("sim", "none", "param_shift", False),
+         ("sim", "teleport", "autodiff", True)]
+
+
+@pytest.fixture(scope="module")
+def item9_world():
+    """The JAX trainer on every item-9 case of ITEM9 once (the same
+    executor as the port's run it is held against), and the port's."""
+    (jtrace, cfg_j, sats, server), (trace, cfg, tsats, tserver) = \
+        _secure_setup()
+    runs = {}
+    for case in ITEM9:
+        mode, security, grad, batched = case
+        kw = dict(mode=mode, security=security, grad_method=grad, **SEC_FL)
+        jt = JaxTrainer(cfg_j, jax_get_model(cfg_j), JaxConfig(**kw), jtrace,
+                        sats, server, batched=batched)
+        jt.run()
+        tt = SatQFLTrainer(cfg, get_model(cfg), SatQFLConfig(**kw), trace,
+                           tsats, tserver, batched=batched, device="cpu")
+        tt.run()
+        runs[case] = (jt, tt)
+    return runs
+
+
+def _assert_metrics_close(tt, jt, atol):
+    fields = ("server_val_loss", "dev_val_loss", "server_val_acc",
+              "server_test_acc", "dev_train_acc", "teleport_fidelity")
+    for mt, mj in zip(tt.history, jt.history):
+        for f in fields:
+            np.testing.assert_allclose(getattr(mt, f), getattr(mj, f),
+                                       atol=atol, err_msg=f)
+    for k, v in tt.global_params.items():
+        np.testing.assert_allclose(v.numpy(), np.asarray(jt.global_params[k]),
+                                   atol=atol, err_msg=k)
+
+
+@pytest.mark.parametrize("case", ITEM9[:4],
+                         ids=["qfl-batched", "qfl-oracle", "sim-batched",
+                              "sim-oracle"])
+def test_param_shift_trainer_matches_jax(item9_world, case):
+    jt, tt = item9_world[case]
+    assert len(tt.history) == SEC_FL["n_rounds"]
+    _assert_accounting_equal(tt, jt)
+    _assert_metrics_close(tt, jt, 1e-6)
+
+
+def test_teleport_trainer_matches_jax(item9_world):
+    """sim under teleport security: the per-edge exchange teleports each
+    payload's angle sample with a key split from the trainer's key, in the
+    JAX trainer's exchange order (the keys end bit-equal); fidelity ~1,
+    metrics within 1e-6, accounting (teleport time included) equal."""
+    jt, tt = item9_world[ITEM9[4]]
+    assert not tt.edge_batched and tt.log.security_s > 0
+    _assert_accounting_equal(tt, jt)
+    _assert_metrics_close(tt, jt, 1e-6)
+    assert all(m.teleport_fidelity > 1 - 1e-5 for m in tt.history)
+    np.testing.assert_array_equal(tt.key.numpy().astype(np.uint32),
+                                  np.asarray(jt.key))
+    assert tt.aborted_edges == jt.aborted_edges == set()

@@ -146,9 +146,15 @@ def test_wrapper_rejects_bad_inputs():
         ops.apply_gate_layer(re, re, torch.zeros(2, 2, 8))      # nq mismatch
     with pytest.raises(ValueError):
         ops.apply_gate_layer(re, re.double(), torch.zeros(2, 3, 8))
-    big = torch.zeros(1, 1, 2 ** 14)
-    with pytest.raises(NotImplementedError, match="kernel #2"):
-        ops.apply_gate_layer(big, big, torch.zeros(1, 14, 8))
+    # past the resident kernel's 13 qubits the layer takes the tiled plan
+    # (TPU kernel #2): on the CPU, the plain version
+    rng = np.random.default_rng(3)
+    big = torch.tensor(rng.normal(size=(2, 1, 1, 2 ** 14)).astype(np.float32))
+    g8 = ops.pack_gates(torch.tensor(_u3(rng, 14, (1,))))
+    got = ops.apply_gate_layer(big[0], big[1], g8)
+    assert ops.LAYER_DEBUG["path"] == "tiled"
+    for a, b in zip(got, ref.apply_layer_planes_ref(big[0], big[1], g8)):
+        assert torch.equal(a, b)
 
 
 def test_cpu_tensors_never_launch():

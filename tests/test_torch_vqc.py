@@ -208,4 +208,4 @@ def test_registry_serves_only_the_vqc():
         get_config("qwen3-0.6b")
     with pytest.raises(NotImplementedError, match="item 11"):
         get_model(CFG_T.replace(family="dense"))
-    assert get_model(CFG_T).shift_grad is None
+    assert get_model(CFG_T).shift_grad is tvqc.parameter_shift_grad
