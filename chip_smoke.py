@@ -58,7 +58,8 @@ all at once) and then:
 8. profiles one warm sim round each under qkd, under the parameter-shift
    rule and at 14 qubits with ``torch.profiler`` and prints the
    device-busy share and the kernels that take the most device time;
-9. holds the sliding-window attention kernel against its plain version
+9. holds the sliding-window attention kernel (tensor cores in bf16, CUDA
+   cores in f32) against its plain version
    (f32 ≤ 2e-5; bf16 within one bf16 step of each element, see
    ``_bf16_steps``) at hymba-1.5b's prefill shape (4, 2048,
    25 heads over 5 kv heads, hd 64) at W=1024 and W=0 in bf16 and f32,
@@ -68,12 +69,13 @@ all at once) and then:
    SDPA with a boolean band mask (the library yardstick, used nowhere in
    the port) at hymba's shape, where SDPA and the XLA path's bf16 softmax
    (``blocks._sdpa_core``) must fail the bf16 limit;
-10. holds the SSD scan kernel against its plain version (y and state
-   ≤ 3e-5 in f32; y within one bf16 step of each element in bf16, which
-   the plain version fed dt rounded to bf16 must fail) at hymba's (4,
-   2048, 50 heads, P 64, N 16), mamba2-130m's N=128, two B/C groups and
-   S=1000 (chunk 125), and once from a given initial state; times it at
-   hymba's shape;
+10. holds the SSD scan kernel (one launch over (batch, head, chunk)
+   blocks) against its plain version (y and state ≤ 3e-5 in f32; y within
+   one bf16 step of each element in bf16, which the plain version fed dt
+   rounded to bf16 must fail; the state ≤ 3e-5 in both) at hymba's (4,
+   2048, 50 heads, P 64, N 16), mamba2-130m's N=128 in f32 and bf16, two
+   B/C groups and S=1000 (chunk 125), and once from a given initial state;
+   times it at hymba's shape and at mamba2-130m's N=128 in bf16;
 11. serves hymba-1.5b at full width and depth in bf16 from random weights:
    one ``make_prefill_step`` over 4 requests x 2048 tokens and
    ``generate`` for 4 requests of 16 prompt tokens and 32 new ones, the
@@ -949,6 +951,12 @@ SSD_SHAPES = {
     "g2_f32": (2, 512, 4, 2, 64, 16, "float32"),
     "s1000_chunk125_f32": (2, 1000, 50, 1, 64, 16, "float32"),
 }
+# the prefill's shape, then N=128, where the look-back moves the most
+SSD_TIMED = ("hymba_bf16", "mamba2_130m_bf16")
+# what the prefill profile matches in device kernel names: #6 launches
+# swa_fwd_bf16_kernel (swa_fwd_f32_kernel in float32), #7
+# ssd_scan_mma_kernel (ssd_scan_f32_kernel)
+SERVE_KERNEL_NAMES = ("swa_fwd", "ssd_scan_")
 SERVE_PREFILL = (4, 2048)      # requests x prompt tokens
 SERVE_GEN = (4, 16, 32)        # requests, prompt tokens, new tokens
 
@@ -1106,9 +1114,10 @@ def _check_ssd(torch, ops, blocks, name, args, init, steps) -> float:
 def phase_ssd_kernel(torch, ops, blocks):
     """Kernel #7 against its plain version (``blocks.ssd_ref``) at every
     listed shape, and from a given initial state at the first; timings at
-    the prefill's. In bf16 the plain version fed dt rounded to bf16 (a
-    kernel that kept dt in bf16) must fail the limit the kernel meets. No
-    single PyTorch call computes the scan, so there is no library time."""
+    the shapes in SSD_TIMED. In bf16 the plain version fed dt rounded to
+    bf16 (a kernel that kept dt in bf16) must fail the limit the kernel
+    meets. No single PyTorch call computes the scan, so there is no
+    library time."""
     worst, timings = {"float32": 0.0, "bfloat16": 0.0}, {}
     steps, controls = {}, {}
     for i, (name, (B, S, H, G, P, N, dtype)) in enumerate(
@@ -1134,7 +1143,7 @@ def phase_ssd_kernel(torch, ops, blocks):
                 raise PhaseError(f"the bf16 limit cannot tell dt in bf16 "
                                  f"from the kernel at {name}")
             del y_r, y_c
-        if name == "hymba_bf16":
+        if name in SSD_TIMED:
             call = lambda: ops.ssd_scan(*args, chunk=128)
             t = {"shape": [B, S, H, G, P, N, dtype],
                  "ms": _cuda_ms(torch, call, 20),
@@ -1267,7 +1276,7 @@ def phase_serve(torch, kops):
             raise PhaseError("generated tokens out of range")
         report["prefill_profile"] = _device_profile(
             torch, lambda: prefill(params, {"tokens": tokens}),
-            kernels=("swa_fwd_kernel", "ssd_scan_kernel"))
+            kernels=SERVE_KERNEL_NAMES)
     print("serve: " + json.dumps(report))
     print(f"serve launches: {json.dumps(launches)}")
     del params, logits
@@ -1473,10 +1482,10 @@ def main() -> int:
     swa_controls = {n: t["control_bf16_steps"]
                     for n, t in swa_timings.items()}
     for name, kernel, source, replaces, err, steps, controls, t, timed in (
-            ("swa_attention", "swa_fwd_kernel", SWA_SOURCE,
+            ("swa_attention", SERVE_KERNEL_NAMES[0], SWA_SOURCE,
              "swa_attention/kernel.py:144", swa_err, swa_steps,
              swa_controls, swa_timings["hymba_w1024_bf16"], swa_timings),
-            ("ssd_scan", "ssd_scan_kernel", SSD_SOURCE,
+            ("ssd_scan", SERVE_KERNEL_NAMES[1], SSD_SOURCE,
              "ssd_scan/kernel.py:89", ssd_err, ssd_steps, ssd_controls,
              ssd_timings["hymba_bf16"], ssd_timings)):
         entries.append({

@@ -15,7 +15,7 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     lib = kbuild.load(SOURCE)
     fn = lib.ssd_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

@@ -7,12 +7,14 @@ in xh's dtype, final state (B, H, P, N) float32). The chunk is the
 largest divisor of S not above ``chunk``, the rule of the JAX package; it
 changes rounding, not the function.
 
-On a CUDA tensor it launches the hand-written kernel (``csrc/ssd_scan.cu``)
-and counts the launch in ``LAUNCHES``; on a CPU tensor it runs the plain
-version, ``blocks.ssd_ref``. A CUDA tensor never falls back to the plain
-version: the kernel runs or the call raises. A given ``init_state`` is
-loaded by the kernel in place of the zero state of a prefill (the JAX
-package sends it through its reference instead).
+On a CUDA tensor it launches the hand-written kernel (``csrc/ssd_scan.cu``:
+one launch over a (batch, head, chunk) grid, the carries passed between
+chunks through a scratch buffer) and counts the launch in ``LAUNCHES``;
+on a CPU tensor it runs the plain version, ``blocks.ssd_ref``. A CUDA
+tensor never falls back to the plain version: the kernel runs or the
+call raises. A given ``init_state`` is loaded by the kernel in place of
+the zero state of a prefill (the JAX package sends it through its
+reference instead).
 
 The backward replays the plain version, ``blocks.ssd_ref``, under
 autograd, as the JAX package's ``_bwd`` replays its reference.
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-#: the kernel's longest chunk (its score tile is 4 x 32 columns wide)
+#: the kernel's longest chunk (its float64 scan of dA holds 4 steps a lane)
 MAX_CHUNK = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -46,10 +48,18 @@ def _launch(xh, dt, A, Bv, Cv, init_state, chunk: int):
     G, N = Bv.shape[2], Bv.shape[3]
     y = torch.empty_like(xh)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=xh.device)
+    # the look-back's scratch, per (batch, head, chunk) block: its own end
+    # state, the carry leaving it and its decay; a flag per block and the
+    # block ticket (the kernel zeroes them on the stream)
+    nb = B * H * (S // chunk)
+    scratch = torch.empty(nb * (2 * P * N + 1), dtype=torch.float32,
+                          device=xh.device)
+    flags = torch.empty(nb + 1, dtype=torch.int32, device=xh.device)
     err = library().ssd_scan_fwd(
         xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bv.data_ptr(),
         Cv.data_ptr(), None if init_state is None else init_state.data_ptr(),
-        y.data_ptr(), state.data_ptr(), B, S, H, G, P, N, chunk,
+        y.data_ptr(), state.data_ptr(), scratch.data_ptr(), flags.data_ptr(),
+        B, S, H, G, P, N, chunk,
         _DTYPES[xh.dtype],
         torch.cuda.current_stream(xh.device).cuda_stream)
     if err != 0:

@@ -6,11 +6,12 @@ causal softmax attention over the band i - window < j <= i (window 0:
 full causal), softmax in float32, output in q's dtype.
 
 On a CUDA tensor it launches the hand-written kernel
-(``csrc/swa_attention.cu``), which reads kv head ``h // (H // KV)`` in
-place of repeating k and v, and counts the launch in ``LAUNCHES``; on a
-CPU tensor it runs the plain version (``swa_attention_plain``: repeat,
-fold heads into batch, ``ref.swa_attention_ref``). A CUDA tensor never
-falls back to the plain version: the kernel runs or the call raises.
+(``csrc/swa_attention.cu``: tensor cores for bf16, CUDA cores for
+float32), which reads kv head ``h // (H // KV)`` in place of repeating k
+and v, and counts the launch in ``LAUNCHES``; on a CPU tensor it runs the
+plain version (``swa_attention_plain``: repeat, fold heads into batch,
+``ref.swa_attention_ref``). A CUDA tensor never falls back to the plain
+version: the kernel runs or the call raises.
 
 The backward replays the plain version under autograd, as the JAX
 package's ``_swa_bwd`` replays ``swa_attention_ref``.
@@ -67,6 +68,9 @@ def _launch(q, k, v, window: int) -> torch.Tensor:
 
     B, S, H, hd = q.shape
     KV = k.shape[2]
+    # the bf16 kernel stages rows in 16-byte copies: a contiguous view at an
+    # odd offset is copied to a fresh (aligned) allocation first
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     o = torch.empty_like(q)
     err = library().swa_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H, KV,

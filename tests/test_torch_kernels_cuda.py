@@ -19,6 +19,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.statevec_gate import ops, ref
 from repro_torch.kernels.swa_attention import ops as swa_ops
 from repro_torch.models.blocks import ssd_ref
+from torch_bf16_limit import bf16_steps
 
 
 def _need_cuda():
@@ -341,15 +342,6 @@ def _swa_inputs(B, S, H, KV, hd, dtype, seed):
             t((B, S, KV, hd), 1.0))
 
 
-def _bf16_steps(got, want) -> float:
-    """Largest |got - want| in units of one bf16 step of each element of
-    ``want`` (2^(floor(log2|want|) - 7)) plus 2^-16: two bf16 roundings of
-    float32 values that agree to float32 precision read <= 1."""
-    w = want.float().abs().clamp_min(2.0 ** -126)
-    step = torch.exp2(torch.floor(torch.log2(w)) - 7) + 2.0 ** -16
-    return ((got.float() - want.float()).abs() / step).max().item()
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -359,6 +351,8 @@ def _bf16_steps(got, want) -> float:
     (1, 1000, 3, 1, 64, 100),     # S no power of two, 3 heads
     (1, 50, 2, 2, 128, 64),       # W > S
     (2, 1, 2, 1, 64, 0),          # S = 1
+    (1, 77, 4, 2, 64, 32),        # S no multiple of 16: ragged last tiles
+    (1, 256, 16, 8, 128, 0),      # qwen3's hd 128, full causal
     (4, 2048, 25, 5, 64, 1024),   # hymba-1.5b's prefill
 ])
 def test_swa_kernel_matches_plain(B, S, H, KV, hd, W, dtype):
@@ -375,7 +369,23 @@ def test_swa_kernel_matches_plain(B, S, H, KV, hd, W, dtype):
     if dtype == torch.float32:
         assert (got - want).abs().max().item() <= 2e-5
     else:
-        assert _bf16_steps(got, want) <= 1.0
+        assert bf16_steps(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+def test_swa_kernel_takes_unaligned_views():
+    """A contiguous bf16 view that does not start on 16 bytes (the kernel
+    stages rows in 16-byte copies) gives the same output, in one launch."""
+    _need_cuda()
+    q, k, v = _swa_inputs(1, 64, 4, 2, 64, torch.bfloat16, seed=9)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
+    qv = buf[1:].view(q.shape)
+    qv.copy_(q)
+    assert qv.data_ptr() % 16 != 0
+    before = swa_ops.LAUNCHES
+    got = swa_ops.swa_attention(qv, k, v, 16)
+    assert swa_ops.LAUNCHES == before + 1
+    assert torch.equal(got, swa_ops.swa_attention(q, k, v, 16))
 
 
 @pytest.mark.cuda
@@ -426,6 +436,7 @@ def _ssd_inputs(B, S, H, G, P, N, dtype, seed):
     (2, 256, 4, 2, 16, 16),       # G = 2
     (1, 1000, 8, 1, 64, 16),      # chunk falls back to 125
     (1, 512, 24, 1, 64, 128),     # mamba2-130m's heads and state
+    (1, 100, 3, 1, 6, 12),        # chunk, P and N no multiple of 8
     (4, 2048, 50, 1, 64, 16),     # hymba-1.5b's prefill
 ])
 def test_ssd_kernel_matches_plain(B, S, H, G, P, N):
@@ -443,18 +454,27 @@ def test_ssd_kernel_matches_plain(B, S, H, G, P, N):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,G,P,N", [(2, 64, 16, 1, 32, 16),
-                                         (4, 2048, 50, 1, 64, 16)])
+@pytest.mark.parametrize("B,S,H,G,P,N", [
+    (2, 64, 16, 1, 32, 16),       # the smoke model's SSM
+    (2, 256, 4, 2, 16, 16),       # G = 2, P = 16
+    (1, 1000, 8, 1, 64, 16),      # chunk 125: padded tiles
+    (1, 512, 24, 1, 64, 128),     # N = 128: eight k-steps of C.B^T
+    (1, 100, 3, 1, 6, 12),        # unaligned rows: staged element-wise
+    (4, 2048, 50, 1, 64, 16),     # hymba-1.5b's prefill
+    (8, 4096, 50, 1, 64, 16),     # 12,800 blocks: the look-back over waves
+])
 def test_ssd_kernel_matches_plain_in_bf16(B, S, H, G, P, N):
     """bf16 y within one bf16 step of each element: kernel and plain
-    version round the same float32 sums; the float32 state ≤ 3e-5."""
+    version round the same float32 sums; the float32 state ≤ 3e-5. The
+    largest grid passes its carries across many waves of blocks, so an
+    ordering fault in the look-back shows as a hang or a wrong state."""
     _need_cuda()
     args = _ssd_inputs(B, S, H, G, P, N, torch.bfloat16, seed=S + H)
     y, st = ssd_ops.ssd_scan(*args, chunk=128)
     y_r, st_r = ssd_ref(*args, chunk=128)
     torch.cuda.synchronize()
     assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
-    assert _bf16_steps(y, y_r) <= 1.0
+    assert bf16_steps(y, y_r) <= 1.0
     assert (st - st_r).abs().max().item() <= 3e-5
 
 
@@ -478,7 +498,7 @@ def test_ssd_kernel_starts_from_a_given_state(dtype):
     if dtype == torch.float32:
         assert (y - y_r).abs().max().item() <= 3e-5
     else:
-        assert _bf16_steps(y, y_r) <= 1.0
+        assert bf16_steps(y, y_r) <= 1.0
     assert (st - st_r).abs().max().item() <= 3e-5
 
 

@@ -20,6 +20,7 @@ from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
 from repro.models.blocks import ssd_ref as jax_ssd_ref
 from repro_torch.kernels.ssd_scan import chunk_len, ssd_scan, ssd_scan_ref
 from repro_torch.models.blocks import ssd_ref
+from torch_bf16_limit import bf16_steps
 
 TOL = 3e-5
 
@@ -110,3 +111,59 @@ def test_chunk_rule_matches_jax(S):
     while S % c:
         c -= 1
     assert chunk_len(S, 128) == c
+
+
+def _ssd_terms(xh, dt, A, Bv, Cv, chunk, terms):
+    """y of the chunked scan as the bf16 kernel computes it: the float32
+    decayed scores M and the float32 carry enter their products with the
+    exact bf16 x and C as bf16 terms (``terms`` of them), each product
+    summed in float32."""
+    b, s, h, p = xh.shape
+    n = Bv.shape[3]
+    nc = s // chunk
+    f = lambda t, *shape: t.float().reshape(b, nc, chunk, *shape)
+    xf, dtf = f(xh, h, p), f(dt, h)
+    Bh, Ch = f(Bv, 1, n).expand(-1, -1, -1, h, -1), f(Cv, 1, n).expand(
+        -1, -1, -1, h, -1)
+
+    def split(t):
+        out = []
+        for _ in range(terms):
+            hi = t.bfloat16().float()
+            out.append(hi)
+            t = t - hi
+        return out
+
+    cs = torch.cumsum((dtf * A).double(), dim=2)            # (b,nc,c,h)
+    seg = (cs[:, :, :, None, :] - cs[:, :, None, :, :]).float()  # l, s
+    tril = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    L = torch.exp(seg.masked_fill(~tril[None, None, :, :, None],
+                                  float("-inf")))
+    M = torch.einsum("bzlhn,bzshn->bzlsh", Ch, Bh) * L * dtf[:, :, None]
+    y = sum(torch.einsum("bzlsh,bzshp->bzlhp", m, xf) for m in split(M))
+    w = torch.exp((cs[:, :, -1:] - cs).float()) * dtf
+    states = torch.einsum("bzlh,bzlhp,bzlhn->bzhpn", w, xf, Bh)
+    decay = torch.exp(cs[:, :, -1].float())
+    carry, prev = torch.zeros(b, h, p, n), []
+    for z in range(nc):
+        prev.append(carry)
+        carry = carry * decay[:, z, :, None, None] + states[:, z]
+    y_off = sum(torch.einsum("bzlhn,bzhpn->bzlhp", Ch, c)
+                for c in split(torch.stack(prev, 1)))
+    y = y + torch.exp(cs.float())[..., None] * y_off
+    return y.reshape(b, s, h, p).bfloat16()
+
+
+def test_two_term_bf16_split_of_m_keeps_the_bf16_limit():
+    """The bf16 SSD kernel's recipe in plain torch: M and the carry as two
+    bf16 terms against exact bf16 x and C stay within one bf16 step of the
+    plain version's y; one bf16 term does not, so the limit tells the two
+    apart."""
+    x, dt, A, Bv, Cv = (torch.tensor(a) for a in _inputs(2, 256, 4, 1, 16,
+                                                         16, seed=23))
+    x, Bv, Cv = x.bfloat16(), Bv.bfloat16(), Cv.bfloat16()
+    want, _ = ssd_ref(x, dt, A, Bv, Cv, chunk=64)
+    two = _ssd_terms(x, dt, A, Bv, Cv, 64, terms=2)
+    one = _ssd_terms(x, dt, A, Bv, Cv, 64, terms=1)
+    assert bf16_steps(two, want) <= 1.0
+    assert bf16_steps(one, want) > 1.0

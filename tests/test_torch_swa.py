@@ -20,6 +20,7 @@ from repro.kernels.swa_attention.ops import _fold, _repeat_kv, _unfold
 from repro.kernels.swa_attention.ops import swa_attention as jax_swa
 from repro.kernels.swa_attention.ref import swa_attention_ref as jax_ref
 from repro_torch.kernels.swa_attention import ops
+from torch_bf16_limit import bf16_steps
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
@@ -105,3 +106,31 @@ def test_rejects_mismatched_inputs():
     q, k, v = (torch.tensor(a) for a in _inputs(1, 8, 4, 2, 32, seed=1))
     with pytest.raises(ValueError, match="one dtype"):
         ops.swa_attention(q, k.double(), v)
+
+
+def test_two_term_bf16_split_of_p_keeps_the_bf16_limit():
+    """The bf16 kernel's P.V recipe in plain torch: float32 scores of exact
+    bf16 q, k; float32 softmax numerators p split into p_hi = bf16(p) and
+    p_lo = bf16(p - p_hi), each multiplied by the exact bf16 v with float32
+    sums (what the tensor cores do), divided by the row sum at the end.
+    That stays within one bf16 step of the plain version; one bf16 term
+    (SDPA's recipe) does not, so the limit tells the two apart."""
+    B, S, H, KV, hd, W = 1, 256, 4, 2, 64, 64
+    q, k, v = (torch.tensor(a).bfloat16()
+               for a in _inputs(B, S, H, KV, hd, seed=21))
+    want = ops.swa_attention_plain(q, k, v, W)
+    qf = ops._fold(q).float()
+    kf, vf = (ops._fold(ops.repeat_kv(t, H)).float() for t in (k, v))
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) / hd ** 0.5
+    pos = torch.arange(S)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+    s = s.masked_fill(~band, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    p_hi = p.bfloat16().float()
+    p_lo = (p - p_hi).bfloat16().float()
+    two = (p_hi @ vf + p_lo @ vf) / l
+    one = (p_hi @ vf) / l
+    unfold = lambda o: ops._unfold(o, B, H).bfloat16()
+    assert bf16_steps(unfold(two), want) <= 1.0
+    assert bf16_steps(unfold(one), want) > 1.0
