@@ -26,7 +26,15 @@ all at once) and then:
    the tiled layer (#2) (≤ 2e-6) at the JAX tests' forced small tiles and
    at nq 14, 16 and 20; times #3 at the insertion shape (a complex matmul
    of the (…, 2, lo) view as the library yardstick) and #2 at (64, 32,
-   2^14) and (1, 4, 2^20);
+   2^14) and (1, 4, 2^20), with one complex matmul by the kron'ed 2^14 x
+   2^14 layer unitary (2 GiB; one gate set for all 2,048 rows) as #2's
+   library yardstick; then holds the layer backward kernel against its
+   plain version (``ref.layer_vjp_ref`` on the same passes) and autograd
+   through the plain forward (≤ 1e-5, non-unitary gates) at the trainer's
+   shapes (64, 32, 2^8) and (64, 32, 2^14), gate-only and state-only,
+   forced small tiles and 20 qubits, checks that two calls give the same
+   bits, and times it (device and call, the plain version, the autograd
+   replay it replaced) at (64, 32, 2^8) and (64, 32, 2^14);
 4. holds the fused OTP-XOR + MAC kernel against its plain version, bit
    for bit, in both tag modes, through the rows entry (the trainer's stage
    (64, 62), a multi-block (5, 16389), the bandwidth shape (64, 2^20)),
@@ -42,7 +50,10 @@ all at once) and then:
    round at 14 qubits (the tiled layer). Every launch count is set to 0
    just before each path and read just after; each path must launch each
    of its kernels and no other, #1 52 (qfl) and 92 (sim) times a round,
-   and every round's val loss must be finite and below 10 (≈ ln 7);
+   the layer backward 2·len(bwd_passes) launches per ansatz layer of every
+   local step on each autodiff path (qfl 60, sim 120, 14 qubits 360) and
+   none under the shift rule, and every round's val loss must be finite
+   and below 10 (≈ ln 7);
 6. runs the VQC at 20 qubits (one batch of 4): forward, autodiff and the
    parameter-shift rule, with their launches counted, against the same
    with the plain versions on the card; and one full-width local step of
@@ -89,7 +100,9 @@ all at once) and then:
    (rel ≤ 1e-4, TF32 off), and a 2-layer prefill of 2 x 256 tokens on
    the CPU vs the card (rel ≤ 1e-4).
 
-It prints one ``{"kernels": [...]}`` line, the card line, and as its last
+It prints one ``{"kernels": [...]}`` line (the layer backward as
+``statevec_gate_layer_bwd`` beside the seven ported TPU kernels), the card
+line, and as its last
 line ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result. Any failed phase exits
 non-zero.
@@ -402,16 +415,162 @@ def phase_gate_kernels(torch, ops, ref):
              "device_ms": _device_ms(torch, call, 10),
              "plain_ms": _cuda_ms(torch, lambda: ref.apply_layer_planes_ref(
                  re, im, g8), 3),
-             "library_ms": None,
+             "library_ms": None, "library_max_abs_err": None,
              # the kernel's own traffic: every pass reads and writes the
              # state once
              "pass_bytes_ms": n_passes * 16 * amps / HBM_BYTES_PER_S * 1e3,
              **_sv_bound(amps, (amps >> 1) * nq)}
+        if nq == 14:
+            # the library yardstick: one complex matmul by the kron'ed
+            # 2^14 x 2^14 layer unitary (2 GiB in complex64). 64 groups'
+            # unitaries would take 128 GiB, so every row takes group 0's
+            # gate set here, and the kernel is held to it on those gates
+            shared = gates[:1]
+            u_t = _kron_layer(torch, shared)[0].transpose(0, 1).contiguous()
+            state = torch.complex(re, im).reshape(G * S, 1 << nq)
+            lib = lambda: torch.matmul(state, u_t)
+            want = ops.apply_gate_layer(re, im, ops.pack_gates(
+                shared).expand(G, nq, 8).contiguous())
+            got = lib().reshape(G, S, 1 << nq)
+            t["library_max_abs_err"] = max(
+                (got.real - want[0]).abs().max().item(),
+                (got.imag - want[1]).abs().max().item())
+            t["library_ms"] = _cuda_ms(torch, lib, 3)
+            del u_t, state, got, want
         timings["statevec_gate_tiled"][name] = t
         print(f"tiled timing {name}: " + json.dumps(t))
         del re, im, gates, g8
     torch.cuda.empty_cache()
     return worst, grad_err, timings
+
+
+# (G, S, nq, low_qubits, group_qubits, noise): the trainer's ansatz and
+# 14-qubit layers, forced small tiles (several column passes) and the
+# 20-qubit VQC's layer. The gates are non-unitary (complex noise of scale
+# 0.2) except at the 14-qubit trainer shape, which takes the trainer's
+# unitary gates: there 14 noisy gates grow the cotangents to tens, where
+# float32 rounding alone comes within a few ulps of 1e-5
+BWD_SHAPES = [(64, 32, 8, 13, 7, 0.2), (64, 32, 14, 13, 7, 0.0),
+              (1, 1, 6, 3, 2, 0.2), (2, 3, 8, 4, 3, 0.2),
+              (3, 2, 10, 13, 7, 0.2), (1, 4, 20, 13, 7, 0.2)]
+BWD_TIMED = {"ansatz": (64, 32, 8), "nq14_ansatz": (64, 32, 14)}
+
+
+def _noisy_layer(torch, G, S, nq, seed, scale=0.2):
+    """``_random_layer``'s states and its gates made non-unitary by complex
+    noise of ``scale``: the backward never inverts a gate."""
+    re, im, gates = _random_layer(torch, G, S, nq, seed)
+    g = torch.Generator("cuda").manual_seed(seed)
+    noise = torch.randn(gates.shape, dtype=torch.complex64, device="cuda",
+                        generator=g)
+    return re, im, gates, (gates + scale * noise)
+
+
+def _bwd_bound(amps: int, nq: int, G: int, need_state: bool) -> dict:
+    """Least time for the layer's backward: the input and the cotangent
+    read, the state cotangent written (24 B an amplitude, 16 B gate-only)
+    plus the gates and their cotangent; per amplitude and qubit the
+    forward butterfly and the adjoint one (14 flops each) and the gate
+    cotangent's 8 sums of 2 products over each pair (16 flops), the last
+    adjoint only where the state cotangent is wanted."""
+    n_bytes = (24 if need_state else 16) * amps + 2 * 4 * G * nq * 8
+    n_flops = amps * nq * 44 - (0 if need_state else amps * 14)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = n_flops / FP32_FLOPS * 1e3
+    return {"bound_ms": max(bytes_ms, flops_ms), "bytes_ms": bytes_ms,
+            "flops_ms": flops_ms,
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+
+
+def phase_layer_backward(torch, ops, ref):
+    """The layer backward kernel (``ops._layer_backward``, which
+    ``apply_gate_layer``'s autograd Function runs on the card) against its
+    plain version (``ref.layer_vjp_ref`` on the same passes, on the card)
+    and against autograd through the plain forward, ≤ 1e-5, with both
+    cotangents, gate-only (the ansatz's first layer) and state-only; two
+    calls must give the same bits. Times it at the trainer's shapes: the
+    kernel (device and call), the plain version and the autograd replay of
+    the plain forward that it replaced (no single PyTorch call computes
+    it)."""
+    worst = 0.0
+    for i, (G, S, nq, low, gq, scale) in enumerate(BWD_SHAPES):
+        re, im, _, gates = _noisy_layer(torch, G, S, nq, 700 + i, scale)
+        g8 = ops.pack_gates(gates)
+        w = torch.randn(2, G, S, 1 << nq, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(i))
+        passes = ops.bwd_passes(nq, low, gq)
+        args = [x.clone().requires_grad_(True) for x in (re, im, g8)]
+        out = ref.apply_layer_planes_ref(*args)
+        (w[0] * out[0] + w[1] * out[1]).sum().backward()
+        replay = [a.grad for a in args]
+        del args, out
+        for need_state, need_gate in ((True, True), (False, True),
+                                      (True, False)):
+            got = ops._layer_backward(re, im, g8, w[0], w[1], passes,
+                                      need_state, need_gate)
+            again = ops._layer_backward(re, im, g8, w[0], w[1], passes,
+                                        need_state, need_gate)
+            plain = ref.layer_vjp_ref(re, im, g8, w[0], w[1], passes,
+                                      need_state, need_gate)
+            torch.cuda.synchronize()
+            flat = lambda r: [*r[0], r[1]]
+            pairs = [(a, b, c) for a, b, c in zip(flat(got), flat(plain),
+                                                  replay) if a is not None]
+            if len(pairs) != need_state * 2 + need_gate:
+                raise PhaseError(f"layer backward returned "
+                                 f"{len(pairs)} cotangents, wanted "
+                                 f"state={need_state} gate={need_gate}")
+            err = max((a - b).abs().max().item() for a, b, _ in pairs)
+            err_ad = max((a - c).abs().max().item() for a, _, c in pairs)
+            same = all(torch.equal(a, b) for a, b in zip(flat(got),
+                                                         flat(again))
+                       if a is not None)
+            print(f"layer backward check G={G} S={S} nq={nq} low={low} "
+                  f"group={gq} noise={scale} state={need_state} "
+                  f"gate={need_gate}: "
+                  f"max_abs_err={err:.3e} vs_autograd={err_ad:.3e} "
+                  f"bit_identical={same}")
+            if not (err <= GRAD_TOL and err_ad <= GRAD_TOL and same):
+                raise PhaseError(f"layer backward disagrees at G={G} S={S} "
+                                 f"nq={nq}: {err}, autograd {err_ad}, "
+                                 f"bit-identical {same}")
+            worst = max(worst, err, err_ad)
+        del re, im, w, replay
+    timings = {}
+    for name, (G, S, nq) in BWD_TIMED.items():
+        re, im, _, gates = _noisy_layer(torch, G, S, nq, 800)
+        g8 = ops.pack_gates(gates)
+        w = torch.randn(2, G, S, 1 << nq, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(8))
+        passes = ops.bwd_passes(nq)
+        big = nq > 13
+
+        def replay():
+            args = [x.detach().requires_grad_(True) for x in (re, im, g8)]
+            with torch.enable_grad():
+                out = ref.apply_layer_planes_ref(*args)
+                return torch.autograd.grad(out, args, (w[0], w[1]))
+
+        for label, need_state in (("both", True), ("gate_only", False)):
+            call = lambda: ops._layer_backward(re, im, g8, w[0], w[1],
+                                               passes, need_state, True)
+            before = ops.LAYER_BWD_LAUNCHES
+            call()
+            t = {"shape": [G, S, 1 << nq], "passes": passes,
+                 "launches": ops.LAYER_BWD_LAUNCHES - before,
+                 "ms": _cuda_ms(torch, call, 20 if big else 200),
+                 "device_ms": _device_ms(torch, call, 10 if big else 50),
+                 "plain_ms": _cuda_ms(torch, lambda: ref.layer_vjp_ref(
+                     re, im, g8, w[0], w[1], passes, need_state, True),
+                     3 if big else 20),
+                 "replay_ms": _cuda_ms(torch, replay, 3 if big else 20),
+                 "library_ms": None,
+                 **_bwd_bound(G * S << nq, nq, G, need_state)}
+            timings[f"{name}_{label}"] = t
+            print(f"layer backward timing {name} {label}: " + json.dumps(t))
+        del re, im, w, g8, gates
+    torch.cuda.empty_cache()
+    return worst, timings
 
 
 def _data(torch, n_sats):
@@ -545,8 +704,6 @@ TRAINER_PATHS = {
     "sim_teleport": dict(mode="sim", security="teleport", n_rounds=2),
     "sim_nq14": dict(mode="sim", n_rounds=1, qubits=14),
 }
-SV_KERNELS = ("statevec_gate_layer", "statevec_gate_tiled",
-              "statevec_gate_1q")
 
 
 def _counts(kops) -> dict:
@@ -555,7 +712,9 @@ def _counts(kops) -> dict:
     sv_ops, otp_ops, swa_ops, ssd_ops = kops
     return {"statevec_gate_layer": sv_ops.LAUNCHES,
             "statevec_gate_tiled": sv_ops.TILED_LAUNCHES,
-            "statevec_gate_1q": sv_ops.GATE_LAUNCHES, **otp_ops.LAUNCHES,
+            "statevec_gate_1q": sv_ops.GATE_LAUNCHES,
+            "statevec_gate_layer_bwd": sv_ops.LAYER_BWD_LAUNCHES,
+            **otp_ops.LAUNCHES,
             "swa_attention": swa_ops.LAUNCHES, "ssd_scan": ssd_ops.LAUNCHES}
 
 
@@ -563,6 +722,7 @@ def _reset(kops):
     """Sets every kernel's launch count to 0."""
     sv_ops, otp_ops, swa_ops, ssd_ops = kops
     sv_ops.LAUNCHES = sv_ops.TILED_LAUNCHES = sv_ops.GATE_LAUNCHES = 0
+    sv_ops.LAYER_BWD_LAUNCHES = 0
     swa_ops.LAUNCHES = ssd_ops.LAUNCHES = 0
     swa_ops.LAUNCHES_BY_WINDOW.clear()
     for k in otp_ops.LAUNCHES:
@@ -574,20 +734,37 @@ def _path_kernels(spec: dict, edge_batched: bool, qubits: int) -> set:
     need = {"statevec_gate_layer" if qubits <= 13 else "statevec_gate_tiled"}
     if spec.get("grad_method") == "param_shift":
         need.add("statevec_gate_1q")
+    else:
+        need.add("statevec_gate_layer_bwd")
     if spec.get("security") in ("qkd", "qkd_fernet"):
         need.add("otp_xor_mac_edges" if edge_batched else "otp_xor_mac")
     return need
 
 
-def _check_round_launches(path, spec, r, launches):
+def _check_round_launches(path, spec, r, launches, layers=3):
     """Per-round counts the design fixes: #1 52 (qfl) and 92 (sim) a round
     at 10 local steps under autodiff; under the shift rule 96 launches of
     #3 (4·nq·L) for every 13 of #1 (1 + L + L²) in training, beside the 12
-    of evaluation."""
+    of evaluation. Under autodiff every local step runs 1 + L forward
+    layers and L backward layers (the encoding layer has no gradient) of
+    2·len(bwd_passes) backward launches each: qfl 60, sim 120, 14 qubits
+    360 a round."""
+    from repro_torch.kernels.statevec_gate import ops
     n1, n3 = launches["statevec_gate_layer"], launches["statevec_gate_1q"]
     if path in ("qfl", "sim") and n1 != {"qfl": 52, "sim": 92}[path]:
         raise PhaseError(f"{path} round {r}: {n1} gate-layer launches, "
                          f"expected {52 if path == 'qfl' else 92}")
+    if spec.get("grad_method") != "param_shift":
+        nq = spec.get("qubits", 8)
+        n_fwd = (n1 if nq <= 13 else launches["statevec_gate_tiled"]
+                 // (1 + len(ops.group_passes(nq))))
+        want = ((n_fwd - 12) // (1 + layers) * layers
+                * 2 * len(ops.bwd_passes(nq)))
+        got = launches["statevec_gate_layer_bwd"]
+        if got != want or (path in ("qfl", "sim")
+                           and got != {"qfl": 60, "sim": 120}[path]):
+            raise PhaseError(f"{path} round {r}: {got} layer-backward "
+                             f"launches, expected {want}")
     if (spec.get("grad_method") == "param_shift" and spec.get("qubits", 8) == 8
             and (n1 - 12) * 96 != n3 * 13):
         raise PhaseError(f"{path} round {r}: {n3} single-gate launches for "
@@ -693,6 +870,7 @@ def phase_wide_vqc(torch, kops, ref):
     from repro_torch.core import SatQFLConfig
     from repro_torch.core.gradients import make_grad_fn
     from repro_torch.models import get_config, get_model
+    from repro_torch.kernels.statevec_gate import ops as sv_ops
     from repro_torch.quantum import vqc
     cfg = get_config("vqc-satqfl").replace(vqc_qubits=WIDE_QUBITS)
     api = get_model(cfg)
@@ -742,7 +920,9 @@ def phase_wide_vqc(torch, kops, ref):
     print("wide vqc: " + json.dumps(report))
     want_n = {"statevec_gate_tiled": 2 * (1 + cfg.vqc_layers) * 2
               + 2 * (1 + cfg.vqc_layers + cfg.vqc_layers ** 2),
-              "statevec_gate_1q": 4 * WIDE_QUBITS * cfg.vqc_layers}
+              "statevec_gate_1q": 4 * WIDE_QUBITS * cfg.vqc_layers,
+              "statevec_gate_layer_bwd": cfg.vqc_layers * 2 * len(
+                  sv_ops.bwd_passes(WIDE_QUBITS))}
     if {k: launches[k] for k in want_n} != want_n or any(
             n for k, n in launches.items() if k not in want_n):
         raise PhaseError(f"wide vqc launches {launches}, expected {want_n}")
@@ -1398,6 +1578,7 @@ def main() -> int:
 
     max_err, timings = phase_kernel(torch, ops, ref)
     gate_err, gate_grad_err, gate_timings = phase_gate_kernels(torch, ops, ref)
+    bwd_err, bwd_timings = phase_layer_backward(torch, ops, ref)
     otp_err, otp_timings = phase_otp_kernel(torch, otp_ops, otp_ref)
     t0 = time.perf_counter()
     trace = build_trace(n_sats=50, n_planes=10, device="cuda")
@@ -1451,15 +1632,30 @@ def main() -> int:
         "bound_ms": q0["bound_ms"], "bound_by": q0["bound_by"],
         "library_ms": mean("library_ms"), "device_ms": mean("device_ms"),
         "shapes": by_q})
+    # (its library yardstick: the matmul by one 2^14 x 2^14 unitary for
+    # every row, whose time does not depend on the gates' values)
     t = gate_timings["statevec_gate_tiled"]["nq14_ansatz"]
     entries.append({
         "name": "statevec_gate_tiled", "route": "cuda", "source": SV_SOURCE,
         "replaces": "src/repro/kernels/statevec_gate/kernel.py:234",
         "max_abs_err": gate_err["statevec_gate_tiled"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None,
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "library_gates": "one gate set for all rows",
         "device_ms": t["device_ms"],
         "shapes": gate_timings["statevec_gate_tiled"]})
+    # the layer backward at the ansatz's (64, 32, 2^8) with both
+    # cotangents (layers 2 and 3 of a step; layer 1 is gate-only, beside it
+    # under "shapes", as is the 14-qubit round's (64, 32, 2^14))
+    t = bwd_timings["ansatz_both"]
+    entries.append({
+        "name": "statevec_gate_layer_bwd", "route": "cuda",
+        "source": SV_SOURCE,
+        "replaces": "src/repro/kernels/statevec_gate/ops.py:180",
+        "max_abs_err": bwd_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None, "device_ms": t["device_ms"],
+        "replay_ms": t["replay_ms"], "shapes": bwd_timings})
     # the otp kernel at the shape its entry meets on the trainer's path:
     # a secure stage's (64, 62) rows; one edge's 62-word stream
     for name, replaces, main_shape in (

@@ -35,8 +35,8 @@ raise or drop) and a MAC mismatch raises.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than run
 weaker: modes seq/async and secagg (ROADMAP queue 1, item 7), fault
-injection and checkpoints (item 8), teleport security and the
-parameter-shift gradient (item 9).
+injection and checkpoints (item 8), and a custom ``sample_batch`` (item
+13).
 """
 from __future__ import annotations
 
@@ -51,7 +51,8 @@ from repro_torch.constellation.topology import ConstellationTrace
 from repro_torch.core.comm import CommLog, CommModel
 from repro_torch.core.flconfig import SatQFLConfig
 from repro_torch.core.localtrain import (
-    make_batched_local_train, make_local_train, sample_local_batches,
+    make_batched_local_train, make_local_train, sample_batch_bounded,
+    sample_local_batches,
 )
 from repro_torch.core.plan import RoundPlan, check_supported, compile_round_plan
 from repro_torch.device import resolve_device
@@ -120,17 +121,33 @@ class RoundMetrics:
     teleport_fidelity: float = float("nan")
 
 
+def default_sample_batch(data: dict, key: torch.Tensor,
+                         batch_size: int) -> dict:
+    """The trainers' sampler: a uniform batch from every row of one
+    client's data (leaves (n, ...), key (2,)), through the bounded sampler
+    both executors share."""
+    n = next(iter(data.values())).shape[0]
+    one = sample_batch_bounded({k: v[None] for k, v in data.items()},
+                               key[None], batch_size, n)
+    return {k: v[0] for k, v in one.items()}
+
+
 class SatQFLTrainer:
     """Hierarchical QFL over a constellation trace (paper Algorithm 1)."""
 
     def __init__(self, model_cfg, api, fl: SatQFLConfig,
                  trace: ConstellationTrace, sat_data: list,
                  server_data: dict, comm: CommModel | None = None,
+                 sample_batch=default_sample_batch,
                  eavesdrop_edges: frozenset = frozenset(),
                  batched: bool = True, edge_batched: bool = True,
                  device=None):
         self.device = dev = resolve_device(device)
         check_supported(fl)
+        if sample_batch is not default_sample_batch:
+            raise NotImplementedError(
+                "a custom sample_batch (the JAX trainer's per-client oracle "
+                "drop) is not ported yet (ROADMAP queue 1, item 13)")
         self.model_cfg = model_cfg
         self.api = api
         self.fl = fl
@@ -749,8 +766,11 @@ class SatQFLTrainer:
         self.history.append(m)
         return m
 
-    def run(self, ckpt_dir: str | None = None) -> list[RoundMetrics]:
-        """Run all rounds of the plan."""
+    def run(self, ckpt_dir: str | None = None, ckpt_every: int = 1,
+            ckpt_keep: int = 3) -> list[RoundMetrics]:
+        """Run all rounds of the plan. Checkpoints (``ckpt_dir`` every
+        ``ckpt_every`` rounds, keeping ``ckpt_keep``) are refused until
+        item 8 ports them."""
         if ckpt_dir is not None:
             raise NotImplementedError(
                 "round checkpoints are not ported yet (ROADMAP queue 1, "

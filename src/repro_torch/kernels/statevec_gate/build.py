@@ -9,15 +9,22 @@ from repro_torch.kernels import build as kbuild
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "statevec_gate.cu"
 
-_PTRS = [ctypes.c_void_p] * 5
+_PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _LL = ctypes.c_longlong
 _STREAM = ctypes.c_void_p
-# entry -> its arguments after the five plane and gate pointers
+_PLANES = [_PTR] * 5          # re, im, gates, out_re, out_im
+# entry -> its argument types
 _SIGNATURES = {
-    "statevec_gate_layer": [_LL, _INT, _INT, _INT, _STREAM],
-    "statevec_gate_group": [_LL, _LL, _INT, _INT, _INT, _INT, _STREAM],
-    "statevec_gate_1q": [_LL, _INT, _INT, _INT, _STREAM],
+    "statevec_gate_layer": _PLANES + [_LL, _INT, _INT, _INT, _STREAM],
+    "statevec_gate_group": _PLANES + [_LL, _LL, _INT, _INT, _INT, _INT,
+                                      _STREAM],
+    "statevec_gate_1q": _PLANES + [_LL, _INT, _INT, _INT, _STREAM],
+    # u_re, u_im, gates, v_re, v_im, out_re, out_im, partial
+    "statevec_gate_layer_bwd": [_PTR] * 8 + [_LL, _LL] + [_INT] * 7
+    + [_STREAM],
+    "statevec_gate_grad_reduce": [_PTR, _PTR, _LL, _INT, _INT, _PTR,
+                                  _STREAM],
 }
 
 
@@ -32,6 +39,6 @@ def library() -> ctypes.CDLL:
     lib = kbuild.load(SOURCE)
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes = _PTRS + args
+        fn.argtypes = args
         fn.restype = ctypes.c_int
     return lib

@@ -1,13 +1,12 @@
 """Plain PyTorch versions of the statevector gate kernels (planes
 formulation).
 
-The oracles the CUDA kernels are held against on the card, the CPU path
-of the wrappers, and the function whose autograd the layer's backward
-replays (as ``repro.kernels.statevec_gate.ops._layer_bwd`` replays
-``apply_layer_planes_ref``). ``adjoint_gate8`` and ``gate_grad`` are the
-math of the single gate's backward (``ops._bwd``). Gates are packed as 8
-float32 reals, [g00r, g00i, g01r, g01i, g10r, g10i, g11r, g11i]. Every
-function is valid at any register size.
+The oracles the CUDA kernels are held against on the card and the CPU
+path of the wrappers. ``adjoint_gate8`` and ``gate_grad`` are the math of
+the single gate's backward (``ops._bwd``); ``layer_vjp_ref`` is the gate
+layer's backward, pass by pass as the CUDA backward runs it. Gates are
+packed as 8 float32 reals, [g00r, g00i, g01r, g01i, g10r, g10i, g11r,
+g11i]. Every function is valid at any register size.
 """
 from __future__ import annotations
 
@@ -73,3 +72,42 @@ def gate_grad(state_re, state_im, cot_re, cot_im, qubit: int):
 
     return torch.stack([x for i in (0, 1) for j in (0, 1) for x in pair(i, j)],
                        dim=-1)
+
+
+def layer_vjp_ref(state_re, state_im, gates8, cot_re, cot_im, passes=None,
+                  need_state: bool = True, need_gate: bool = True):
+    """The gate layer's backward, the algorithm of the CUDA backward.
+
+    state planes (G, S, dim) and gates8 (G, nq, 8) are the layer's inputs,
+    cot planes the cotangent at its output. ``passes`` splits the qubits
+    into consecutive ranges (q0, m) (default: one pass). Each pass's input
+    is the state with the earlier passes applied; the passes run last to
+    first, and inside a pass gate q, last to first, pairs its own input
+    (``gate_grad``) with the cotangent at its output, which then takes the
+    adjoint gate. No gate is inverted. Returns ((cot_re, cot_im) at the
+    layer's input or (None, None), gate cotangent (G, nq, 8) or None).
+    """
+    nq = gates8.shape[-2]
+    passes = passes or [(0, nq)]
+    inputs = [(state_re, state_im)]
+    if need_gate:
+        for q0, m in passes[:-1]:
+            re, im = inputs[-1]
+            for q in range(q0, q0 + m):
+                re, im = apply_gate_planes_ref(re, im, gates8[..., q, :], q)
+            inputs.append((re, im))
+    grads = [None] * nq
+    v_re, v_im = cot_re, cot_im
+    for i in reversed(range(len(passes))):
+        q0, m = passes[i]
+        if need_gate:
+            us = [inputs[i]]
+            for q in range(q0, q0 + m - 1):
+                us.append(apply_gate_planes_ref(*us[-1], gates8[..., q, :], q))
+        for q in reversed(range(q0, q0 + m)):
+            if need_gate:
+                grads[q] = gate_grad(*us[q - q0], v_re, v_im, q)
+            v_re, v_im = apply_gate_planes_ref(
+                v_re, v_im, adjoint_gate8(gates8[..., q, :]), q)
+    g8 = torch.stack(grads, dim=-2) if need_gate else None
+    return ((v_re, v_im) if need_state else (None, None)), g8

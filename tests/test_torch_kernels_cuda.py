@@ -194,7 +194,11 @@ def test_resident_layer_counts_only_its_kernel():
 
 
 @pytest.mark.cuda
-def test_tiled_layer_gradients_replay_the_plain_version():
+def test_tiled_layer_gradients_run_the_backward_kernel():
+    """Backward through the tiled plan (nq 14) runs the layer backward
+    kernel — 6 launches: two recomputed pass inputs, three passes, the
+    reduce — and no forward kernel, == autograd through the plain version,
+    ≤ 1e-5."""
     _need_cuda()
     re, im, g8 = _layer_inputs(2, 2, 14, seed=4)
     w = torch.randn(2, 2, 2, 2 ** 14, device="cuda",
@@ -203,10 +207,131 @@ def test_tiled_layer_gradients_replay_the_plain_version():
     for fn in (ops.apply_gate_layer, ref.apply_layer_planes_ref):
         args = [x.clone().requires_grad_(True) for x in (re, im, g8)]
         out_r, out_i = fn(*args)
+        before = (_sv_counts(), ops.LAYER_BWD_LAUNCHES)
         (w[0] * out_r + w[1] * out_i).sum().backward()
+        if fn is ops.apply_gate_layer:
+            assert (_sv_counts(), ops.LAYER_BWD_LAUNCHES) == (
+                before[0], before[1] + 6)
         grads.append([a.grad for a in args])
     for a, b in zip(*grads):
         assert (a - b).abs().max().item() <= 1e-5
+
+
+def _noisy_layer_inputs(G, S, nq, seed):
+    """As ``_layer_inputs``, the gates made non-unitary by complex noise
+    of scale 0.2: the backward never inverts a gate."""
+    re, im, g8 = _layer_inputs(G, S, nq, seed)
+    g = torch.Generator("cuda").manual_seed(seed)
+    return re, im, g8 + 0.2 * torch.randn(g8.shape, device="cuda",
+                                          generator=g)
+
+
+def _bwd_launches(nq, low=13, gq=7, need_gate=True):
+    passes = ops.bwd_passes(nq, low, gq)
+    return len(passes) + (len(passes) if need_gate else 0)
+
+
+# (G, S, nq, low_qubits, group_qubits): the trainer's ansatz (64, 32, 2^8)
+# and 14-qubit (64, 32, 2^14) shapes, every body of the low pass (nq 1-8),
+# the column passes past 8 qubits, 20 qubits, and forced small tiles
+BWD_SHAPES = [(64, 32, 8, 13, 7), (3, 2, 1, 13, 7), (3, 2, 2, 13, 7),
+              (3, 2, 3, 13, 7), (4, 3, 5, 13, 7), (4, 3, 6, 13, 7),
+              (4, 3, 7, 13, 7), (2, 3, 9, 13, 7), (2, 3, 10, 13, 7),
+              (2, 2, 13, 13, 7), (64, 32, 14, 13, 7), (1, 2, 20, 13, 7),
+              (1, 1, 6, 3, 2), (2, 3, 8, 4, 3)]
+# the 14-qubit trainer shape takes the trainer's unitary gates: 14 noisy
+# ones grow the cotangents to tens, where float32 rounding alone comes
+# within a few ulps of 1e-5; every other shape is noisy
+UNITARY_BWD_SHAPES = {(64, 32, 14)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need", ["both", "gate_only", "state_only"])
+@pytest.mark.parametrize("G,S,nq,low,gq", BWD_SHAPES)
+def test_layer_backward_kernel_matches_autograd(G, S, nq, low, gq, need):
+    """The layer backward kernel == autograd through the plain version,
+    ≤ 1e-5, for non-unitary gates (unitary at the 14-qubit trainer
+    shape, see ``UNITARY_BWD_SHAPES``), with the state cotangent, the gate
+    cotangent or both wanted (the ansatz's first layer wants only the
+    gates'); its launches are counted, none of the forward kernels'."""
+    _need_cuda()
+    make = (_layer_inputs if (G, S, nq) in UNITARY_BWD_SHAPES
+            else _noisy_layer_inputs)
+    re, im, g8 = make(G, S, nq, seed=nq)
+    w = torch.randn(2, G, S, 2 ** nq, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(nq))
+    flags = {"both": (True, True, True), "gate_only": (False, False, True),
+             "state_only": (True, True, False)}[need]
+    tiling = dict(low_qubits=low, group_qubits=gq,
+                  group_tile=512 if low >= 8 else 8)
+    grads = []
+    for fn, kw in ((ops.apply_gate_layer, tiling),
+                   (ref.apply_layer_planes_ref, {})):
+        args = [x.clone().requires_grad_(f) for x, f in zip((re, im, g8),
+                                                             flags)]
+        out_r, out_i = fn(*args, **kw)
+        before = (_sv_counts(), ops.LAYER_BWD_LAUNCHES)
+        (w[0] * out_r + w[1] * out_i).sum().backward()
+        if fn is ops.apply_gate_layer:
+            assert (_sv_counts(), ops.LAYER_BWD_LAUNCHES) == (
+                before[0], before[1] + _bwd_launches(nq, low, gq, flags[2]))
+        grads.append([a.grad for a in args])
+    torch.cuda.synchronize()
+    for a, b, f in zip(*grads, flags):
+        assert (a is None) == (not f)
+        if f:
+            assert (a - b).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,S,nq", [(64, 32, 8), (64, 32, 14)])
+def test_layer_backward_kernel_is_bit_identical(G, S, nq):
+    """Two backward calls on the same inputs give the same bits: the gate
+    cotangent is reduced in a fixed order, with no float atomics."""
+    _need_cuda()
+    re, im, g8 = _layer_inputs(G, S, nq, seed=7)
+    w = torch.randn(2, G, S, 2 ** nq, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(7))
+    grads = []
+    for _ in range(2):
+        args = [x.clone().requires_grad_(True) for x in (re, im, g8)]
+        out_r, out_i = ops.apply_gate_layer(*args)
+        (w[0] * out_r + w[1] * out_i).sum().backward()
+        grads.append([a.grad for a in args])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", range(1, 21))
+def test_layer_bodies_match_plain_at_every_register(nq):
+    """#1's bodies (one warp per state to 2^10, register-blocked to 2^13)
+    and #2's (the register-blocked pass 0 past 2^13) == the plain layer,
+    ≤ 1e-5, at every register from 1 to 20 qubits."""
+    _need_cuda()
+    G, S = (3, 5) if nq <= 14 else (1, 2)
+    re, im, g8 = _layer_inputs(G, S, nq, seed=30 + nq)
+    got = ops.apply_gate_layer(re, im, g8)
+    assert ops.LAYER_DEBUG["path"] == ("resident" if nq <= 13 else "tiled")
+    want = ref.apply_layer_planes_ref(re, im, g8)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("low", [11, 12])
+def test_register_blocked_pass0_at_every_tile(low):
+    """Pass 0 at 2^11 and 2^12 tiles (64 and 128 threads a tile) ==
+    the plain layer, ≤ 2e-6."""
+    _need_cuda()
+    re, im, g8 = _layer_inputs(2, 3, 14, seed=low)
+    got = ops.apply_gate_layer(re, im, g8, low_qubits=low)
+    assert ops.LAYER_DEBUG["path"] == "tiled"
+    want = ref.apply_layer_planes_ref(re, im, g8)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 2e-6
 
 
 @pytest.mark.cuda

@@ -143,6 +143,57 @@ def test_checkpoints_refused(world):
         tr.run(ckpt_dir="unused")
 
 
+def test_trainer_signatures_match_jax():
+    """The constructor takes the reference's parameters in its order
+    (``sample_batch`` 8th, before ``eavesdrop_edges``; the port adds
+    ``device`` last), so a positional call written for ``repro`` binds the
+    same arguments; ``run`` takes the reference's checkpoint options with
+    the reference's defaults."""
+    import inspect
+    want = inspect.signature(JaxTrainer.__init__).parameters
+    got = inspect.signature(SatQFLTrainer.__init__).parameters
+    assert list(got) == list(want) + ["device"]
+    assert list(got).index("sample_batch") == 8          # after self
+    want_run = inspect.signature(JaxTrainer.run).parameters
+    got_run = inspect.signature(SatQFLTrainer.run).parameters
+    assert list(got_run) == list(want_run)
+    for name, p in want_run.items():
+        assert got_run[name].default == p.default, name
+
+
+def test_checkpoint_options_refused_not_mistyped(world):
+    """A run written for ``repro`` with every checkpoint option gets the
+    NotImplementedError that names item 8, not a TypeError."""
+    _, port, _ = world
+    tr = port("qfl", n_rounds=1)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tr.run(ckpt_dir="unused", ckpt_every=2, ckpt_keep=1)
+
+
+def test_custom_sampler_refused():
+    """A sampler other than the default is refused, naming item 13, before
+    any work."""
+    with pytest.raises(NotImplementedError, match="item 13"):
+        SatQFLTrainer(None, None, SatQFLConfig(), None, [], {},
+                      sample_batch=lambda data, key, batch_size: data,
+                      device="cpu")
+
+
+def test_default_sampler_is_the_bounded_sampler():
+    """The default sampler draws what the executors' bounded sampler
+    draws for one client's unpadded rows."""
+    from repro_torch import prng
+    from repro_torch.core.localtrain import sample_batch_bounded
+    data = {"features": torch.arange(40.0).reshape(20, 2),
+            "labels": torch.arange(20)}
+    key = prng.PRNGKey(3, "cpu")
+    got = round_mod.default_sample_batch(data, key, 8)
+    want = sample_batch_bounded({k: v[None] for k, v in data.items()},
+                                key[None], 8, 20)
+    for k in data:
+        assert torch.equal(got[k], want[k][0])
+
+
 # ---------------------------------------------------------------------------
 # the secure exchange plane (Algorithm 2)
 # ---------------------------------------------------------------------------

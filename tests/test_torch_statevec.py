@@ -162,3 +162,83 @@ def test_cpu_tensors_never_launch():
     re = torch.zeros(1, 1, 4)
     ops.apply_gate_layer(re, re, torch.zeros(1, 2, 8))
     assert ops.LAUNCHES == before
+
+
+def _noisy_gates(rng, nq, lead=()):
+    """Random non-unitary gates: U3 plus complex noise of scale 0.2."""
+    g = _u3(rng, nq, lead)
+    noise = rng.normal(size=g.shape) + 1j * rng.normal(size=g.shape)
+    return (g + 0.2 * noise).astype(np.complex64)
+
+
+# (G, S, nq, low_qubits, group_qubits): the resident plan's single pass,
+# the backward's low pass plus column passes past 8 qubits, and the tiled
+# split at forced small tiles
+VJP_CASES = [(2, 3, 1, 13, 7), (2, 3, 5, 13, 7), (3, 2, 10, 13, 7),
+             (3, 2, 6, 3, 2), (2, 2, 9, 4, 3)]
+
+
+@pytest.mark.parametrize("G,S,nq,low,gq", VJP_CASES)
+def test_layer_vjp_ref_matches_autograd(G, S, nq, low, gq):
+    """The plain backward (the kernel's algorithm, pass by pass) == autograd
+    through the plain forward, ≤ 1e-5, for non-unitary gates; the gate-only
+    and state-only cases return only what is asked for."""
+    rng = np.random.default_rng(100 + nq)
+    st = _state(rng, (G, S, 2 ** nq))
+    g8 = ops.pack_gates(torch.tensor(_noisy_gates(rng, nq, (G,))))
+    re, im = torch.tensor(st.real.copy()), torch.tensor(st.imag.copy())
+    w = torch.tensor(rng.normal(size=(2, G, S, 2 ** nq)).astype(np.float32))
+    args = [x.clone().requires_grad_(True) for x in (re, im, g8)]
+    out = ref.apply_layer_planes_ref(*args)
+    (w[0] * out[0] + w[1] * out[1]).sum().backward()
+    passes = ops.bwd_passes(nq, low, gq)
+    (c_re, c_im), gg = ref.layer_vjp_ref(re, im, g8, w[0], w[1], passes)
+    for a, b in zip(args, (c_re, c_im, gg)):
+        np.testing.assert_allclose(b.numpy(), a.grad.numpy(), atol=1e-5)
+    (n_re, n_im), g_only = ref.layer_vjp_ref(re, im, g8, w[0], w[1], passes,
+                                             need_state=False)
+    assert n_re is None and n_im is None and torch.equal(g_only, gg)
+    (s_re, s_im), none = ref.layer_vjp_ref(re, im, g8, w[0], w[1], passes,
+                                           need_gate=False)
+    assert none is None
+    assert torch.equal(s_re, c_re) and torch.equal(s_im, c_im)
+
+
+@pytest.mark.parametrize("nq,G,tiling", [
+    (4, 2, {}), (6, 1, dict(low_qubits=3, group_qubits=2, group_tile=4))])
+def test_layer_vjp_matches_jax_vjp(nq, G, tiling):
+    """The port's backward (CPU: ``ref.layer_vjp_ref`` through the
+    autograd.Function) == ``jax.vjp`` of repro's ``apply_gate_layer`` (the
+    Pallas forward in interpret mode), per gate set, wrt the state planes
+    and the gates' real and imaginary parts, ≤ 1e-5, for non-unitary
+    gates; resident plan (two gate sets) and the tiled split at forced
+    small tiles (one: each JAX call runs the Pallas forward in interpret
+    mode)."""
+    S = 3
+    rng = np.random.default_rng(200 + nq)
+    st = _state(rng, (G, S, 2 ** nq))
+    gates = _noisy_gates(rng, nq, (G,))
+    w = rng.normal(size=(2, G, S, 2 ** nq)).astype(np.float32)
+    args = [torch.tensor(x).requires_grad_(True) for x in (
+        st.real.copy(), st.imag.copy(),
+        ops.pack_gates(torch.tensor(gates)).numpy())]
+    out = ops.apply_gate_layer(*args, **tiling)
+    (torch.tensor(w[0]) * out[0] + torch.tensor(w[1]) * out[1]).sum(
+    ).backward()
+
+    def f(sr, si, gr, gi):
+        o = jax_apply_gate_layer(sr + 1j * si, gr + 1j * gi, **tiling)
+        return o.real, o.imag
+
+    for g in range(G):
+        _, vjp = jax.vjp(f, jnp.asarray(st[g].real), jnp.asarray(st[g].imag),
+                         jnp.asarray(gates[g].real),
+                         jnp.asarray(gates[g].imag))
+        d_sr, d_si, d_gr, d_gi = vjp((jnp.asarray(w[0, g]),
+                                      jnp.asarray(w[1, g])))
+        want_g8 = np.stack([np.asarray(d_gr), np.asarray(d_gi)],
+                           -1).reshape(nq, 8)
+        for got, want in ((args[0].grad[g], d_sr), (args[1].grad[g], d_si),
+                          (args[2].grad[g], want_g8)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=1e-5)

@@ -24,7 +24,7 @@ from repro.kernels.statevec_gate import ops as jops
 from repro.models import get_config as jax_get_config
 from repro.quantum import statevector as jsv
 from repro.quantum import vqc as jvqc
-from repro_torch.kernels.statevec_gate import ops
+from repro_torch.kernels.statevec_gate import ops, ref
 from repro_torch.models import get_config
 from repro_torch.quantum import statevector as tsv
 from repro_torch.quantum import vqc as tvqc
@@ -194,3 +194,49 @@ def test_cpu_tensors_never_launch_a_layer_kernel():
         ops.apply_gate_layer(re, re, torch.zeros(1, dim.bit_length() - 1, 8),
                              group_tile=tile)
     assert (ops.LAUNCHES, ops.TILED_LAUNCHES, ops.GATE_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("nq,low,gq,want", [
+    (1, 13, 7, [(0, 1)]), (8, 13, 7, [(0, 8)]),
+    (10, 13, 7, [(0, 8), (8, 2)]),
+    (14, 13, 7, [(0, 8), (8, 3), (11, 3)]),
+    (20, 13, 7, [(0, 8), (8, 3), (11, 3), (14, 3), (17, 3)]),
+    (6, 3, 2, [(0, 3), (3, 2), (5, 1)]),
+    (9, 5, 4, [(0, 5), (5, 3), (8, 1)])])
+def test_bwd_passes_cover_the_register(nq, low, gq, want):
+    """The backward's passes: a low pass of at most 8 qubits (one warp per
+    2^m chunk on the card) and column passes of at most 3 (a column's 2^m
+    amplitudes, each gate's input kept in registers), in order, covering
+    every qubit once; the forward's tiling overrides shape them."""
+    passes = ops.bwd_passes(nq, low, gq)
+    assert passes == want
+    assert passes[0][1] <= ops.BWD_LOW_QUBITS
+    assert all(1 <= m <= ops.BWD_COL_QUBITS for _, m in passes[1:])
+    assert [q0 for q0, _ in passes] == [sum(m for _, m in passes[:i])
+                                        for i in range(len(passes))]
+    assert sum(m for _, m in passes) == nq
+
+
+def test_tiled_layer_vjp_matches_autograd_through_plain():
+    """The backward at 14 qubits (the low pass and two column passes) on
+    the CPU == autograd through the plain forward, ≤ 1e-5, for
+    non-unitary gates."""
+    nq, G, S = 14, 1, 2
+    rng = np.random.default_rng(41)
+    st = _state(rng, (G, S, 2 ** nq))
+    t, p, l = rng.uniform(-3, 3, (3, nq)).astype(np.float32)
+    g = tsv.u3_gate(torch.tensor(t), torch.tensor(p), torch.tensor(l))
+    nr, ni = torch.tensor(rng.normal(size=(2, nq, 2, 2)).astype(np.float32))
+    g = g + 0.2 * torch.complex(nr, ni)
+    g8 = ops.pack_gates(g)[None]
+    w = torch.tensor(rng.normal(size=(2, G, S, 2 ** nq)).astype(np.float32))
+    grads = []
+    for fn in (ops.apply_gate_layer, ref.apply_layer_planes_ref):
+        args = [x.clone().requires_grad_(True) for x in (
+            torch.tensor(st.real.copy()), torch.tensor(st.imag.copy()), g8)]
+        out = fn(*args)
+        (w[0] * out[0] + w[1] * out[1]).sum().backward()
+        grads.append([a.grad for a in args])
+    assert ops.LAYER_DEBUG["path"] == "tiled"
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
