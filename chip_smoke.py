@@ -36,10 +36,19 @@ all at once) and then:
    bits, and times it (device and call, the plain version, the autograd
    replay it replaced) at (64, 32, 2^8) and (64, 32, 2^14);
 4. holds the fused OTP-XOR + MAC kernel against its plain version, bit
-   for bit, in both tag modes, through the rows entry (the trainer's stage
-   (64, 62), a multi-block (5, 16389), the bandwidth shape (64, 2^20)),
-   the stream entry (62 and 16384·4+7 words) and the padded-convention
-   wrappers; times the kernel and the plain version at those shapes;
+   for bit, in both tag modes: the given-pad body through the rows entry
+   (the trainer's stage (64, 62), a multi-block (5, 16389), the bandwidth
+   shape (64, 2^20)), the stream entry (62 and 16384·4+7 words) and the
+   padded-convention wrappers; the seeded body (pads generated in the
+   kernel from seeds and a pad layout, seeds 0 and 2^32 - 1 in every
+   check) through the rows entry at the trainer's stage (64 rows of the
+   VQC tree: 62 words, 4 leaves), a mixed-width tree, a multi-block tree
+   (5 rows with a 16389-element leaf), (64, 2^20) as one f32 leaf and as
+   one bf16 leaf of 2^21 elements, and through the stream entry at 62 and
+   65,543 words; times both bodies and their plain versions at those
+   shapes against their bounds, and at the stage shape also the path the
+   seeded body replaced (the pads built by ``tree_pad_u32_rows`` on the
+   card, then the given-pad kernel);
 5. runs the trainer at full width — the paper's 50-satellite / 10-plane
    trace over 6 h at 30 s, the 8-qubit 3-layer VQC, synthetic Statlog over
    50 Dirichlet shards, 10 local steps of batch 32 — on every path of the
@@ -52,8 +61,10 @@ all at once) and then:
    of its kernels and no other, #1 52 (qfl) and 92 (sim) times a round,
    the layer backward 2·len(bwd_passes) launches per ansatz layer of every
    local step on each autodiff path (qfl 60, sim 120, 14 qubits 360) and
-   none under the shift rule, and every round's val loss must be finite
-   and below 10 (≈ ln 7);
+   none under the shift rule, the seeded OTP kernel qfl 2 and sim 4 a
+   round under qkd, qkd_fernet and the shift rule's qkd path and 2 per
+   delivered edge on the per-edge oracle (the given-pad entries never),
+   and every round's val loss must be finite and below 10 (≈ ln 7);
 6. runs the VQC at 20 qubits (one batch of 4): forward, autodiff and the
    parameter-shift rule, with their launches counted, against the same
    with the plain versions on the card; and one full-width local step of
@@ -68,7 +79,8 @@ all at once) and then:
    must agree;
 8. profiles one warm sim round each under qkd, under the parameter-shift
    rule and at 14 qubits with ``torch.profiler`` and prints the
-   device-busy share and the kernels that take the most device time;
+   device-busy share, the round's device-op count and the kernels that
+   take the most device time;
 9. holds the sliding-window attention kernel (tensor cores in bf16, CUDA
    cores in f32) against its plain version
    (f32 ≤ 2e-5; bf16 within one bf16 step of each element, see
@@ -101,7 +113,9 @@ all at once) and then:
    the CPU vs the card (rel ≤ 1e-4).
 
 It prints one ``{"kernels": [...]}`` line (the layer backward as
-``statevec_gate_layer_bwd`` beside the seven ported TPU kernels), the card
+``statevec_gate_layer_bwd`` beside the seven ported TPU kernels; #4 and #5
+as the OTP kernel's seeded entries, each with its given-pad body under
+``given_pad``), the card
 line, and as its last
 line ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result. Any failed phase exits
@@ -683,6 +697,150 @@ def phase_otp_kernel(torch, ops, ref):
     return worst, timings
 
 
+# the seeded body's trees: name -> (rows, leaves as (dtype, row shape) in
+# flatten order); "vqc" is the trainer's VQC tree (4 leaves, 62 words)
+OTP_SEEDED_TREES = {
+    "stage": (64, "vqc"),
+    "mixed": (5, [("float32", (3, 5)), ("bfloat16", (7,)),
+                  ("float16", (2, 3)), ("int32", (4,))]),
+    "multiblock": (5, [("float32", (3,)), ("float32", (16389,)),
+                       ("bfloat16", (5,)), ("int32", (7,))]),
+    "bandwidth": (64, [("float32", (1 << 20,))]),
+    "bandwidth_bf16": (64, [("bfloat16", (1 << 21,))]),
+}
+# the stream entry: the VQC tree (one edge, 62 words) and 65,543 words
+OTP_SEEDED_STREAMS = {
+    "edge": "vqc",
+    "stream": [("float32", (1 << 16,)), ("bfloat16", (13,))],
+}
+# seeds 0 and 2^32 - 1 in every seeded check
+OTP_EDGE_SEEDS = (0, (1 << 32) - 1)
+THREEFRY_OPS = 80              # integer operations of one threefry2x32
+
+
+def _seeded_like(torch, spec, rows):
+    """A tree of the spec's leaf dtypes and shapes with ``rows`` leading
+    rows (none when ``rows`` is None); "vqc" is the trainer's model tree
+    from its init. Its values are unused: the kernel reads only the
+    message words and the tree's pad layout."""
+    lead = () if rows is None else (rows,)
+    if spec == "vqc":
+        from repro_torch import prng
+        from repro_torch.models import get_config, get_model
+        cfg = get_config("vqc-satqfl")
+        tree = get_model(cfg).init(cfg, prng.PRNGKey(0, device="cuda"))
+        return {k: v.expand(lead + v.shape) for k, v in tree.items()}
+    return {f"l{i}": torch.zeros(lead + shape, dtype=getattr(torch, dt),
+                                 device="cuda")
+            for i, (dt, shape) in enumerate(spec)}
+
+
+def _otp_seeded_bound(rows: int, layout_rows) -> dict:
+    """Least time of the seeded body over ``rows`` rows of a pad layout:
+    msg read and ct written (8 B a word) plus seed, keys and tag (12 B a
+    row); one threefry2x32 (~80 integer ops) per leaf key and per element
+    (a 16-bit leaf's odd tail costs none more), and the MAC's 5 a word."""
+    n = sum(c if w == 32 else (c + 1) // 2 for _, _, c, w in layout_rows)
+    threefry = len(layout_rows) + sum(c for _, _, c, _ in layout_rows)
+    bytes_ms = (8 * rows * n + 12 * rows) / HBM_BYTES_PER_S * 1e3
+    ops_ms = rows * (THREEFRY_OPS * threefry + 5 * n) / INT32_OPS * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "threefry_per_row": threefry,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_otp_seeded(torch, ops, ref):
+    """The fused kernel's seeded body (pads generated in the kernel) vs its
+    plain version (the pads expanded from the same layout by the port's
+    threefry), bit for bit, in both tag modes with seeds 0 and 2^32 - 1,
+    at the trainer's stage, a mixed-width tree, a multi-block tree, (64,
+    2^20) as one f32 leaf and as one bf16 leaf of 2^21 elements, and the
+    stream entry at 62 and 65,543 words; times each against its bound, and
+    at the stage shape also the path it replaced (the pads built by
+    ``tree_pad_u32_rows`` on the card, then the given-pad kernel)."""
+    from repro_torch.security.otp import (layout_rows, pad_layout,
+                                          tree_pad_u32_rows)
+    worst = {"otp_xor_mac_edges_seeded": 0, "otp_xor_mac_seeded": 0}
+    timings = {"otp_xor_mac_edges_seeded": {}, "otp_xor_mac_seeded": {}}
+    for i, (name, (E, spec)) in enumerate(OTP_SEEDED_TREES.items()):
+        like = _seeded_like(torch, spec, E)
+        layout = pad_layout(like, lead=1)
+        lrows = layout_rows(layout)
+        n = sum(c if w == 32 else (c + 1) // 2 for _, _, c, w in lrows)
+        msg = _words(torch, (E, n), 500 + 10 * i)
+        rk, sk = _words(torch, (E,), 501 + 10 * i), _words(torch, (E,),
+                                                           502 + 10 * i)
+        seeds = _words(torch, (E,), 503 + 10 * i)
+        seeds[:2] = ref.as_storage(torch.tensor(OTP_EDGE_SEEDS,
+                                                device="cuda"))
+        for tag_input in (False, True):
+            got = ops.otp_xor_mac_rows_seeded(msg, seeds, layout, rk, sk,
+                                              tag_input)
+            want = ref.otp_xor_mac_rows_seeded_ref(msg, seeds, layout, rk,
+                                                   sk, tag_input)
+            torch.cuda.synchronize()
+            gap = _otp_gap(torch, got, want)
+            print(f"otp seeded rows check {name} E={E} n={n} "
+                  f"leaves={len(lrows)} tag_input={tag_input}: "
+                  f"max_abs_err={gap}")
+            worst["otp_xor_mac_edges_seeded"] = max(
+                worst["otp_xor_mac_edges_seeded"], gap)
+        big = E * n > 1 << 24
+        call = lambda: ops.otp_xor_mac_rows_seeded(msg, seeds, layout, rk, sk)
+        t = {"shape": [E, n], "leaves": len(lrows),
+             "ms": _cuda_ms(torch, call, 20 if big else 200),
+             "device_ms": _device_ms(torch, call, 20),
+             "plain_ms": _cuda_ms(
+                 torch, lambda: ref.otp_xor_mac_rows_seeded_ref(
+                     msg, seeds, layout, rk, sk), 3 if big else 20),
+             **_otp_seeded_bound(E, lrows)}
+        if name == "stage":
+            # what the trainer ran before: plain-torch pads, given-pad kernel
+            seeds64 = seeds.to(torch.int64) & 0xFFFFFFFF
+            t["replaced_ms"] = _cuda_ms(torch, lambda: ops.otp_xor_mac_rows(
+                msg, ref.as_storage(tree_pad_u32_rows(like, seeds64)), rk, sk),
+                20)
+        timings["otp_xor_mac_edges_seeded"][name] = t
+        print(f"otp seeded rows timing {name}: " + json.dumps(t))
+        del msg, like
+    for i, (name, spec) in enumerate(OTP_SEEDED_STREAMS.items()):
+        layout = pad_layout(_seeded_like(torch, spec, None))
+        lrows = layout_rows(layout)
+        n = sum(c if w == 32 else (c + 1) // 2 for _, _, c, w in lrows)
+        msg = _words(torch, (n,), 600 + i)
+        keys = _words(torch, (2,), 610 + i).tolist()
+        for seed in OTP_EDGE_SEEDS:
+            row = torch.tensor([[seed], keys[:1], keys[1:]],
+                               dtype=torch.int64, device="cuda")
+            for tag_input in (False, True):
+                got = ops.otp_xor_mac_stream_seeded(msg, seed, layout,
+                                                    keys[0], keys[1],
+                                                    tag_input)
+                ct, tag = ref.otp_xor_mac_rows_seeded_ref(
+                    msg[None], row[0], layout, row[1], row[2], tag_input)
+                torch.cuda.synchronize()
+                gap = _otp_gap(torch, got, (ct[0], tag[0]))
+                print(f"otp seeded stream check {name} n={n} seed={seed} "
+                      f"tag_input={tag_input}: max_abs_err={gap}")
+                worst["otp_xor_mac_seeded"] = max(
+                    worst["otp_xor_mac_seeded"], gap)
+        call = lambda: ops.otp_xor_mac_stream_seeded(msg, OTP_EDGE_SEEDS[1],
+                                                     layout, keys[0], keys[1])
+        t = {"shape": [n], "leaves": len(lrows),
+             "ms": _cuda_ms(torch, call, 200),
+             "device_ms": _device_ms(torch, call, 20),
+             "plain_ms": _cuda_ms(
+                 torch, lambda: ref.otp_xor_mac_rows_seeded_ref(
+                     msg[None], row[0], layout, row[1], row[2]), 20),
+             **_otp_seeded_bound(1, lrows)}
+        timings["otp_xor_mac_seeded"][name] = t
+        print(f"otp seeded stream timing {name}: " + json.dumps(t))
+    if any(worst.values()):
+        raise PhaseError(f"otp_xor seeded kernel disagrees with plain: "
+                         f"{worst}")
+    return worst, timings
+
+
 # name -> the path's config; "batched", "edge_batched" and "qubits" go to
 # the trainer and the model config, the rest to SatQFLConfig
 TRAINER_PATHS = {
@@ -737,19 +895,33 @@ def _path_kernels(spec: dict, edge_batched: bool, qubits: int) -> set:
     else:
         need.add("statevec_gate_layer_bwd")
     if spec.get("security") in ("qkd", "qkd_fernet"):
-        need.add("otp_xor_mac_edges" if edge_batched else "otp_xor_mac")
+        need.add("otp_xor_mac_edges_seeded" if edge_batched
+                 else "otp_xor_mac_seeded")
     return need
 
 
-def _check_round_launches(path, spec, r, launches, layers=3):
+def _check_round_launches(path, spec, r, launches, transfers, layers=3):
     """Per-round counts the design fixes: #1 52 (qfl) and 92 (sim) a round
     at 10 local steps under autodiff; under the shift rule 96 launches of
     #3 (4·nq·L) for every 13 of #1 (1 + L + L²) in training, beside the 12
     of evaluation. Under autodiff every local step runs 1 + L forward
     layers and L backward layers (the encoding layer has no gradient) of
     2·len(bwd_passes) backward launches each: qfl 60, sim 120, 14 qubits
-    360 a round."""
+    360 a round. Under qkd and qkd_fernet the seeded OTP kernel runs twice
+    a secure stage (sender and receiver): qfl 2 and sim 4 a round
+    edge-batched, 2 per delivered edge (``transfers``) on the per-edge
+    oracle; the given-pad entries never."""
     from repro_torch.kernels.statevec_gate import ops
+    if spec.get("security") in ("qkd", "qkd_fernet"):
+        key, want = (("otp_xor_mac_seeded", 2 * transfers)
+                     if spec.get("edge_batched", True) is False else
+                     ("otp_xor_mac_edges_seeded",
+                      {"qfl": 2, "sim": 4}[spec["mode"]]))
+        given = launches["otp_xor_mac_edges"] + launches["otp_xor_mac"]
+        if launches[key] != want or given:
+            raise PhaseError(f"{path} round {r}: {launches[key]} launches of "
+                             f"{key} (expected {want}) and {given} of the "
+                             f"given-pad entries (expected 0)")
     n1, n3 = launches["statevec_gate_layer"], launches["statevec_gate_1q"]
     if path in ("qfl", "sim") and n1 != {"qfl": 52, "sim": 92}[path]:
         raise PhaseError(f"{path} round {r}: {n1} gate-layer launches, "
@@ -797,6 +969,7 @@ def phase_trainer(torch, kops, trace, sats, server):
         _reset(kops)
         for r in range(fl.n_rounds):
             before = _counts(kops)
+            sent = tr.log.n_transfers
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             m = tr.run_round(r)
@@ -804,6 +977,7 @@ def phase_trainer(torch, kops, trace, sats, server):
             dt = time.perf_counter() - t0
             rounds.append({
                 "round": r, "seconds": dt,
+                "transfers": tr.log.n_transfers - sent,
                 "launches": {k: v - before[k] for k, v in
                              _counts(kops).items()},
                 "val_loss": m.server_val_loss, "val_acc": m.server_val_acc,
@@ -818,7 +992,8 @@ def phase_trainer(torch, kops, trace, sats, server):
             if fl.security == "teleport" and not m.teleport_fidelity > 0.999:
                 raise PhaseError(f"{path} round {r}: teleport fidelity "
                                  f"{m.teleport_fidelity}")
-            _check_round_launches(path, spec, r, rounds[-1]["launches"])
+            _check_round_launches(path, spec, r, rounds[-1]["launches"],
+                                  rounds[-1]["transfers"])
         launches[path] = _counts(kops)
         need = _path_kernels(spec, edge_batched, qubits)
         for k, n in launches[path].items():
@@ -1097,6 +1272,9 @@ def phase_profile(torch, trace, sats, server):
         print(f"profile {name}: " + (json.dumps(prof) if prof else
                                      "not measured (the profiler recorded "
                                      "no device time)"))
+        if prof:
+            print(f"profile {name}: {prof['device_ops']} device ops in one "
+                  f"warm round, {prof['device_busy_share']:.3f} busy")
 
 
 # --------------------------------------------------------------------------
@@ -1580,6 +1758,7 @@ def main() -> int:
     gate_err, gate_grad_err, gate_timings = phase_gate_kernels(torch, ops, ref)
     bwd_err, bwd_timings = phase_layer_backward(torch, ops, ref)
     otp_err, otp_timings = phase_otp_kernel(torch, otp_ops, otp_ref)
+    seeded_err, seeded_timings = phase_otp_seeded(torch, otp_ops, otp_ref)
     t0 = time.perf_counter()
     trace = build_trace(n_sats=50, n_planes=10, device="cuda")
     sats, server = _data(torch, 50)
@@ -1656,19 +1835,32 @@ def main() -> int:
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "device_ms": t["device_ms"],
         "replay_ms": t["replay_ms"], "shapes": bwd_timings})
-    # the otp kernel at the shape its entry meets on the trainer's path:
-    # a secure stage's (64, 62) rows; one edge's 62-word stream
-    for name, replaces, main_shape in (
-            ("otp_xor_mac_edges", "kernel.py:98", "stage"),
-            ("otp_xor_mac", "kernel.py:131", "edge")):
-        t = otp_timings[name][main_shape]
+    # the otp kernel's seeded body at the shape its entry meets on the
+    # trainer's path: a secure stage's 64 rows of the VQC tree; one edge's
+    # 62-word stream. The given-pad body (off the path since the pads are
+    # generated in the kernel) rides along under "given_pad", with its
+    # launches on every path (0)
+    for name, given, replaces, main_shape, given_shape in (
+            ("otp_xor_mac_edges_seeded", "otp_xor_mac_edges", "kernel.py:98",
+             "stage", "stage"),
+            ("otp_xor_mac_seeded", "otp_xor_mac", "kernel.py:131", "edge",
+             "edge")):
+        t = seeded_timings[name][main_shape]
+        g = otp_timings[given][given_shape]
         entries.append({
             "name": name, "route": "cuda", "source": OTP_SOURCE,
             "replaces": "src/repro/kernels/otp_xor/" + replaces,
-            "max_abs_err": otp_err[name], "ms": t["ms"],
+            "max_abs_err": seeded_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
-            "device_ms": t["device_ms"], "shapes": otp_timings[name]})
+            "device_ms": t["device_ms"], "shapes": seeded_timings[name],
+            "given_pad": {
+                "name": given, "max_abs_err": otp_err[given],
+                "ms": g["ms"], "device_ms": g["device_ms"],
+                "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+                "bound_by": g["bound_by"], "shapes": otp_timings[given],
+                "launches_by_path": {p: c[given]
+                                     for p, c in launches.items()}}})
     # the serving kernels at the prefill's main shape (bf16; swa at W=1024,
     # 29 of the 32 layers); launches are those of one 4 x 2048 prefill
     # (device_ms is the kernel alone at that shape; the prefill's own

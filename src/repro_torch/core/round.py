@@ -27,11 +27,13 @@ carries per-(round, edge) pad seeds, MAC keys, first-contact and abort
 masks. ``edge_batched=True`` (the default) runs each round stage as one
 secure dispatch over the stacked rows: the sender's XOR + MAC and the
 receiver's MAC + XOR are one launch each of the fused CUDA kernel
-(``kernels.otp_xor``). ``edge_batched=False`` keeps the per-edge oracle
-(``_exchange``), two launches of the kernel's stream entry per delivered
-edge. Both give bit-identical payloads and exactly equal accounting; QBER
-aborts surface per edge (``SecurityError.edges``, ``fl.on_qber_abort``
-raise or drop) and a MAC mismatch raises.
+(``kernels.otp_xor``), which generates the threefry pads itself from the
+stage's seeds and the tree's cached pad layout. ``edge_batched=False``
+keeps the per-edge oracle (``_exchange``), two launches of the kernel's
+seeded stream entry per delivered edge. Both give bit-identical payloads
+and exactly equal accounting; QBER aborts surface per edge
+(``SecurityError.edges``, ``fl.on_qber_abort`` raise or drop) and a MAC
+mismatch raises.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than run
 weaker: modes seq/async and secagg (ROADMAP queue 1, item 7), fault
@@ -70,9 +72,9 @@ from repro_torch.security.fernet_lite import (
     fernet_encrypt, fernet_encrypt_rows,
 )
 from repro_torch.security.keys import KeyManager, canonical_edge
-from repro_torch.security.otp import (tree_pad_u32, tree_pad_u32_rows,
-                                      tree_to_u32, tree_to_u32_rows,
-                                      u32_to_tree, u32_to_tree_rows)
+from repro_torch.security.otp import (pad_layout, tree_to_u32,
+                                      tree_to_u32_rows, u32_to_tree,
+                                      u32_to_tree_rows)
 
 
 def _mac_rows_verify(sent_tags: torch.Tensor,
@@ -374,13 +376,15 @@ class SatQFLTrainer:
     def _secure_edge(self, params, seed: int, mac_r: int, mac_s: int,
                      edge: tuple):
         """One edge's payload through OTP + MAC, as two launches of the
-        fused kernel's stream entry: the sender encrypts and tags its
-        ciphertext, the receiver tags what it received and decrypts it."""
+        fused kernel's seeded stream entry: the sender encrypts and tags
+        its ciphertext, the receiver regenerates the pad from its own copy
+        of the seed, tags what it received and decrypts it."""
         msg = as_storage(tree_to_u32(params))
-        pad = as_storage(tree_pad_u32(params, seed))
-        ct, tag = otp_ops.otp_xor_mac_stream(msg, pad, mac_r, mac_s)
-        plain, tag_rx = otp_ops.otp_xor_mac_stream(ct, pad, mac_r, mac_s,
-                                                   tag_input=True)
+        layout = pad_layout(params)
+        ct, tag = otp_ops.otp_xor_mac_stream_seeded(msg, seed, layout, mac_r,
+                                                    mac_s)
+        plain, tag_rx = otp_ops.otp_xor_mac_stream_seeded(
+            ct, seed, layout, mac_r, mac_s, tag_input=True)
         if self.fl.verify_mac and not bool(_mac_rows_verify(tag, tag_rx)):
             raise SecurityError(f"MAC mismatch on edge {edge}", edges=[edge])
         return u32_to_tree(plain, params)
@@ -388,31 +392,34 @@ class SatQFLTrainer:
     def _secure_stage(self, stacked, seeds, mac_r, mac_s, tamper):
         """ONE edge-batched Algorithm-2 dispatch over the frame's rows: the
         sender's XOR + MAC and the receiver's MAC + XOR, one launch each of
-        the fused kernel. Rows without an edge carry seed 0 and pass
+        the fused kernel's seeded rows entry, which generates every row's
+        pad from its seed. Rows without an edge carry seed 0 and pass
         through bit-identically (XOR is an involution).
 
-        seeds/mac_r/mac_s/tamper: (K,) uint32 numpy. ``tamper`` is the
-        wire-corruption word per row (0 = clean; the fault plane sets it):
-        it flips the first RECEIVED word before the receiver's MAC, so a
-        tampered row fails verification, and is undone after decryption
-        so a dropped row keeps the sender's payload, as the JAX stage
-        decrypts the clean ciphertext. Returns (tree, ok (K,) bool or None
-        without MAC verification)."""
+        seeds/mac_r/mac_s/tamper: (K,) uint32 numpy, copied to the device
+        together as one (3, K) array. ``tamper`` is the wire-corruption
+        word per row (0 = clean; the fault plane sets it): it flips the
+        first RECEIVED word before the receiver's MAC, so a tampered row
+        fails verification, and is undone after decryption so a dropped
+        row keeps the sender's payload, as the JAX stage decrypts the
+        clean ciphertext. Returns (tree, ok (K,) bool or None without MAC
+        verification)."""
         dev = self.device
-        seeds_t = torch.from_numpy(seeds.astype(np.int64)).to(dev)
-        keys = torch.from_numpy(
-            np.stack([mac_r, mac_s]).astype(np.uint32).view(np.int32)).to(dev)
+        seeds_t, mac_r_t, mac_s_t = torch.from_numpy(
+            np.stack([seeds, mac_r, mac_s]).astype(np.uint32).view(np.int32)
+        ).to(dev)
+        layout = pad_layout(stacked, lead=1)
         msg = as_storage(tree_to_u32_rows(stacked))
-        pad = as_storage(tree_pad_u32_rows(stacked, seeds_t))
-        ct, tags = otp_ops.otp_xor_mac_rows(msg, pad, keys[0], keys[1])
+        ct, tags = otp_ops.otp_xor_mac_rows_seeded(msg, seeds_t, layout,
+                                                   mac_r_t, mac_s_t)
         flip = None
         if tamper.any():
             flip = torch.from_numpy(
                 tamper.astype(np.uint32).view(np.int32)).to(dev)
             ct = ct.clone()
             ct[:, 0] ^= flip
-        plain, tags_rx = otp_ops.otp_xor_mac_rows(ct, pad, keys[0], keys[1],
-                                                  tag_input=True)
+        plain, tags_rx = otp_ops.otp_xor_mac_rows_seeded(
+            ct, seeds_t, layout, mac_r_t, mac_s_t, tag_input=True)
         if flip is not None:
             plain[:, 0] ^= flip
         ok = _mac_rows_verify(tags, tags_rx) if self.fl.verify_mac else None

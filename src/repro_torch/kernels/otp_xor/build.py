@@ -25,5 +25,14 @@ def library() -> ctypes.CDLL:
                    + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.otp_xor_mac_seeded
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint]
+                   + [ctypes.c_void_p] * 3
+                   + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     lib.otp_xor_mac_words_per_block.restype = ctypes.c_int
+    lib.otp_xor_mac_max_leaves.restype = ctypes.c_int
     return lib

@@ -1,17 +1,21 @@
 """Plain PyTorch versions of the fused OTP-XOR + MAC kernel.
 
-``otp_xor_mac_rows_ref`` is the function the CUDA kernel computes, on the
-same int32 bit storage of u32 words: the oracle the kernel is held against
-on the card and the CPU path of the wrapper. The block refs reproduce the
-TPU kernel's intermediate contract (``repro.kernels.otp_xor.ref``):
-per-(edge, block) partial tags over 128-lane blocks with a power table,
-on int64 u32 words.
+``otp_xor_mac_rows_ref`` is the function the CUDA kernel's given-pad body
+computes, on the same int32 bit storage of u32 words, and
+``otp_xor_mac_rows_seeded_ref`` the one its seeded body computes (the pads
+expanded from seeds and a pad layout by the port's threefry): the oracles
+the kernel is held against on the card and the CPU paths of the wrappers.
+The block refs reproduce the TPU kernel's intermediate contract
+(``repro.kernels.otp_xor.ref``): per-(edge, block) partial tags over
+128-lane blocks with a power table, on int64 u32 words.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import prng
 from repro_torch.security.mac import P31, poly_mac_rows
+from repro_torch.security.otp import layout_rows
 
 _M32 = 0xFFFFFFFF
 
@@ -35,6 +39,34 @@ def otp_xor_mac_rows_ref(msg, pad, r_keys, s_keys, tag_input: bool = False):
     tags = poly_mac_rows(m if tag_input else ct, as_words(r_keys),
                          as_words(s_keys))
     return as_storage(ct), tags.to(torch.int32)
+
+
+def layout_pads(seeds, layout) -> torch.Tensor:
+    """(E,) seeds (int32 storage or int64 words) and a pad layout ->
+    (E, n) pad words (int64): leaf i of each row draws ``prng.bits`` under
+    ``fold_in(key(seed), i)``, 16-bit leaves keep the low halves and pack
+    two to a word, low first, with pad 0 after an odd length."""
+    base = prng.key_u32(as_words(seeds))
+    out, off = [], 0
+    for i, first, count, width in layout_rows(layout):
+        if first != off:
+            raise ValueError(f"layout leaf {i} starts at word {first}, "
+                             f"not {off}")
+        b = prng.bits(prng.fold_in(base, i), (count,))
+        if width == 16:
+            b = torch.nn.functional.pad(b & 0xFFFF, (0, count % 2))
+            b = b[:, 0::2] | (b[:, 1::2] << 16)
+        out.append(b)
+        off += b.shape[-1]
+    return torch.cat(out, dim=-1)
+
+
+def otp_xor_mac_rows_seeded_ref(msg, seeds, layout, r_keys, s_keys,
+                                tag_input: bool = False):
+    """The seeded body: msg (E, n) int32 storage, seeds (E,), a pad layout
+    of n words, keys (E,) -> (ct (E, n), tags (E,)), int32 storage."""
+    return otp_xor_mac_rows_ref(msg, as_storage(layout_pads(seeds, layout)),
+                                r_keys, s_keys, tag_input)
 
 
 def _block_tags(terms: torch.Tensor, lead: int) -> torch.Tensor:

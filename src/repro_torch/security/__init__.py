@@ -25,15 +25,16 @@ from repro_torch.security.mac import (
 )
 from repro_torch.security.otp import (
     decrypt_tree, decrypt_tree_rows, encrypt_tree, encrypt_tree_rows,
-    pad_u32, pad_u32_rows, tree_pad_u32, tree_pad_u32_rows, tree_to_u32,
-    tree_to_u32_rows, u32_to_tree, u32_to_tree_rows,
+    layout_rows, pad_layout, pad_u32, pad_u32_rows, tree_pad_u32,
+    tree_pad_u32_rows, tree_to_u32, tree_to_u32_rows, u32_to_tree,
+    u32_to_tree_rows,
 )
 
 __all__ = [
     "encrypt_tree", "decrypt_tree", "pad_u32", "tree_to_u32", "u32_to_tree",
     "encrypt_tree_rows", "decrypt_tree_rows", "pad_u32_rows",
     "tree_to_u32_rows", "u32_to_tree_rows", "tree_pad_u32",
-    "tree_pad_u32_rows",
+    "tree_pad_u32_rows", "pad_layout", "layout_rows",
     "poly_mac_u32", "mac_verify", "poly_mac_rows", "mac_verify_rows", "P31",
     "KeyManager", "EdgeKey", "canonical_edge", "mac_key_mix",
     "round_seed_mix", "pairwise_mask_seed", "MASK_DOMAIN", "QBER_ABORT",

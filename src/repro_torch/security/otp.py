@@ -14,7 +14,10 @@ torch has no uint32 arithmetic: words are held in int64 tensors masked to
 leaves two to a word, low half first, with a zero half-word after an odd
 length. ``tree_pad_u32(_rows)`` gives the pads in that same wire layout,
 so ``tree_to_u32(encrypt_tree(t, s)) == tree_to_u32(t) ^ tree_pad_u32(t, s)``
-— the form the fused XOR + MAC kernel consumes.
+— the form the fused XOR + MAC kernel's given-pad entries consume.
+``pad_layout`` describes the same pads leaf by leaf (index, first wire
+word, elements, width): from it and a seed the kernel's seeded entries
+generate the pads themselves, which is what the trainer runs.
 
 The secagg half of the JAX module (``tree_to_q32`` … ``secagg_mask_stream``)
 comes with ROADMAP queue 1, item 7.
@@ -227,3 +230,54 @@ def tree_pad_u32_rows(like, seeds_u32) -> torch.Tensor:
     base = _seed_keys(seeds_u32, leaves[0].device)
     return _pack(_leaf_pads(leaves, base, 1),
                  [_width(x.dtype) for x in leaves], (leaves[0].shape[0],))
+
+
+# ---------------------------------------------------------------------------
+# the pad layout: what the fused kernel needs to generate the pads itself
+# ---------------------------------------------------------------------------
+
+# (device, structure) -> layout, and id(layout) -> (layout, its rows as
+# host ints); never evicted, so a layout built here stays alive and its id
+# names it
+_LAYOUTS: dict = {}
+_LAYOUT_ROWS: dict = {}
+
+
+def pad_layout(like, lead: int = 0) -> torch.Tensor:
+    """The pads of ``like`` in its wire layout, as the fused kernel reads
+    them: an int64 (L, 4) tensor on the leaves' device, one row per leaf in
+    flatten order — the leaf index i (the ``fold_in`` datum), its first
+    wire word, its element count per row and its width (32, or 16 for
+    bf16, f16 and i16 leaves). ``lead`` leading dims of each leaf are row
+    dims (0 for one tree, 1 for stacked rows).
+
+    Built once per tree structure (each leaf's dtype and row shape) and
+    device and cached, so a call on a known structure copies nothing to
+    the device."""
+    leaves = tree_leaves(like)
+    if not leaves:
+        raise ValueError("a pad layout needs at least one leaf")
+    dev = leaves[0].device
+    key = (dev, tuple((x.dtype, tuple(x.shape[lead:])) for x in leaves))
+    hit = _LAYOUTS.get(key)
+    if hit is not None:
+        return hit
+    rows, first = [], 0
+    for i, leaf in enumerate(leaves):
+        count = math.prod(leaf.shape[lead:])
+        width = _width(leaf.dtype)
+        rows.append((i, first, count, width))
+        first += count if width == 32 else (count + 1) // 2
+    layout = torch.tensor(rows, dtype=torch.int64, device=dev)
+    _LAYOUTS[key] = layout
+    _LAYOUT_ROWS[id(layout)] = (layout, tuple(rows))
+    return layout
+
+
+def layout_rows(layout: torch.Tensor) -> tuple:
+    """A layout's rows as host ints: the copy kept by ``pad_layout`` (no
+    device sync), or read from the tensor for a layout built elsewhere."""
+    kept = _LAYOUT_ROWS.get(id(layout))
+    if kept is not None and kept[0] is layout:
+        return kept[1]
+    return tuple(tuple(r) for r in layout.tolist())

@@ -441,8 +441,9 @@ def test_trainer_raises_when_the_kernel_cannot_launch(monkeypatch):
         raise RuntimeError("otp_xor_mac launch failed: refused")
 
     monkeypatch.setattr(otp_ops, "_launch", refuse)
-    monkeypatch.setattr(otp_ops, "otp_xor_mac_rows_ref",
-                        lambda *a, **k: pytest.fail("plain version ran"))
+    for plain in ("otp_xor_mac_rows_ref", "otp_xor_mac_rows_seeded_ref"):
+        monkeypatch.setattr(otp_ops, plain,
+                            lambda *a, **k: pytest.fail("plain version ran"))
     cfg = get_config("vqc-satqfl").replace(vqc_qubits=4, vqc_layers=1,
                                            n_features=4)
     X, y = make_statlog(n_features=4, device="cuda")
@@ -456,6 +457,155 @@ def test_trainer_raises_when_the_kernel_cannot_launch(monkeypatch):
                        trace, sats, server, device="cuda")
     with pytest.raises(RuntimeError, match="refused"):
         tr.run_round(0)
+
+
+# the seeded body's trees: name -> (rows, leaves as (dtype, row shape) in
+# flatten order): the trainer's VQC tree, a mixed-width tree, a multi-block
+# tree, the (64, 2^20) f32 and bf16 leaves, an empty leaf and odd 16-bit
+# leaves across block edges, and 300 leaves spread over several blocks
+SEEDED_TREES = {
+    "vqc_stage": (64, [("float32", (7,)), ("float32", (3, 8)),
+                       ("float32", (3, 8)), ("float32", (7,))]),
+    "mixed": (5, [("float32", (3, 5)), ("bfloat16", (7,)),
+                  ("float16", (2, 3)), ("int32", (4,))]),
+    "multiblock": (5, [("float32", (3,)), ("float32", (16389,)),
+                       ("bfloat16", (5,)), ("int32", (7,))]),
+    "bandwidth": (64, [("float32", (1 << 20,))]),
+    "bandwidth_bf16": (64, [("bfloat16", (1 << 21,))]),
+    "edges": (3, [("bfloat16", (8191,)), ("float32", (0,)),
+                  ("int16", (8193,)), ("float32", (4095,)),
+                  ("float16", (1,))]),
+    "many_leaves": (2, [("bfloat16" if i % 3 else "float32", (17 + i,))
+                        for i in range(300)]),
+}
+
+
+def _seeded_tree(name):
+    E, spec = SEEDED_TREES[name]
+    return E, {f"l{i:03d}": torch.zeros((E,) + shape,
+                                        dtype=getattr(torch, dt),
+                                        device="cuda")
+               for i, (dt, shape) in enumerate(spec)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag_input", [False, True])
+@pytest.mark.parametrize("name", list(SEEDED_TREES))
+def test_otp_seeded_rows_kernel_matches_plain(name, tag_input):
+    """Pads generated in the kernel: ciphertext and tags bit-equal to the
+    plain version (pads expanded from the same layout), with seeds 0 and
+    2^32 - 1 among the rows; one launch under the seeded key."""
+    _need_cuda()
+    from repro_torch.security.otp import pad_layout
+    E, tree = _seeded_tree(name)
+    layout = pad_layout(tree, lead=1)
+    n = int(layout[-1, 1]) + (int(layout[-1, 2]) if int(layout[-1, 3]) == 32
+                              else (int(layout[-1, 2]) + 1) // 2)
+    msg = _words((E, n), len(name))
+    seeds = _words((E,), 4)
+    seeds[0], seeds[-1] = 0, -1                    # seeds 0 and 2^32 - 1
+    rk, sk = _words((E,), 5), _words((E,), 6)
+    before = dict(otp_ops.LAUNCHES)
+    ct, tags = otp_ops.otp_xor_mac_rows_seeded(msg, seeds, layout, rk, sk,
+                                               tag_input)
+    assert otp_ops.LAUNCHES == {**before, "otp_xor_mac_edges_seeded":
+                                before["otp_xor_mac_edges_seeded"] + 1}
+    ct_r, tags_r = otp_ref.otp_xor_mac_rows_seeded_ref(msg, seeds, layout,
+                                                       rk, sk, tag_input)
+    torch.cuda.synchronize()
+    assert torch.equal(ct, ct_r) and torch.equal(tags, tags_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 2 ** 32 - 1, 0x5EED])
+@pytest.mark.parametrize("name", ["vqc_stage", "stream"])
+def test_otp_seeded_stream_kernel_matches_plain(name, seed):
+    """The stream entry at one edge's 62 words and at 65,543 words."""
+    _need_cuda()
+    from repro_torch.security.otp import pad_layout
+    if name == "stream":
+        tree = {"a": torch.zeros(1 << 16, device="cuda"),
+                "b": torch.zeros(13, dtype=torch.bfloat16, device="cuda")}
+    else:
+        tree = {k: v[0] for k, v in _seeded_tree(name)[1].items()}
+    layout = pad_layout(tree)
+    n = 65543 if name == "stream" else 62
+    msg = _words((n,), 9)
+    before = otp_ops.LAUNCHES["otp_xor_mac_seeded"]
+    for tag_input in (False, True):
+        ct, tag = otp_ops.otp_xor_mac_stream_seeded(msg, seed, layout,
+                                                    0xDEADBEEF, 12345,
+                                                    tag_input)
+        row = torch.tensor([[seed], [0xDEADBEEF], [12345]], device="cuda")
+        ct_r, tag_r = otp_ref.otp_xor_mac_rows_seeded_ref(
+            msg[None], row[0], layout, row[1], row[2], tag_input)
+        torch.cuda.synchronize()
+        assert torch.equal(ct, ct_r[0]) and int(tag) == int(tag_r[0])
+    assert otp_ops.LAUNCHES["otp_xor_mac_seeded"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["seeds_int64", "seeds_cpu", "layout_cpu",
+                                 "layout_words", "layout_leaves"])
+def test_otp_seeded_kernel_rejects_bad_cuda_inputs(bad):
+    """Seeds or a layout the kernel does not take raise before any launch;
+    a CUDA call never drops to the plain version."""
+    _need_cuda()
+    from repro_torch.security.otp import pad_layout
+    E, tree = _seeded_tree("mixed")
+    layout = pad_layout(tree, lead=1)
+    msg, seeds, keys = _words((E, 26), 1), _words((E,), 2), _words((E,), 3)
+    if bad == "seeds_int64":
+        seeds = seeds.to(torch.int64)
+    elif bad == "seeds_cpu":
+        seeds = seeds.cpu()
+    elif bad == "layout_cpu":
+        layout = layout.cpu()
+    elif bad == "layout_words":
+        msg = _words((E, 27), 1)
+    else:
+        layout = pad_layout({f"x{i:03d}": torch.zeros(E, 1, device="cuda")
+                             for i in range(otp_ops.MAX_LEAVES + 1)}, lead=1)
+        msg = _words((E, otp_ops.MAX_LEAVES + 1), 1)
+    before = dict(otp_ops.LAUNCHES)
+    with pytest.raises(ValueError):
+        otp_ops.otp_xor_mac_rows_seeded(msg, seeds, layout, keys, keys)
+    assert otp_ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge_batched", [True, False])
+def test_secure_trainer_launches_only_the_seeded_entries(edge_batched):
+    """A qfl qkd round on the card: 2 launches of the seeded rows entry
+    edge-batched, 2 of the seeded stream entry per delivered edge on the
+    per-edge oracle, none of the given-pad entries."""
+    _need_cuda()
+    from repro_torch.constellation import build_trace
+    from repro_torch.core import SatQFLConfig, SatQFLTrainer
+    from repro_torch.data import dirichlet_partition, make_statlog
+    from repro_torch.data import server_split
+    from repro_torch.models import get_config, get_model
+    cfg = get_config("vqc-satqfl").replace(vqc_qubits=4, vqc_layers=1,
+                                           n_features=4)
+    X, y = make_statlog(n_features=4, device="cuda")
+    Xc, yc, server = server_split(X, y)
+    sats = dirichlet_partition(Xc, yc, 6)
+    trace = build_trace(n_sats=6, n_planes=2, duration_s=1800, step_s=60,
+                        device="cuda")
+    tr = SatQFLTrainer(cfg, get_model(cfg),
+                       SatQFLConfig(mode="qfl", security="qkd", n_rounds=1,
+                                    local_steps=1, batch_size=4),
+                       trace, sats, server, edge_batched=edge_batched,
+                       device="cuda")
+    for k in otp_ops.LAUNCHES:
+        otp_ops.LAUNCHES[k] = 0
+    tr.run_round(0)
+    want = ({"otp_xor_mac_edges_seeded": 2} if edge_batched
+            else {"otp_xor_mac_seeded": 2 * tr.log.n_transfers})
+    assert otp_ops.LAUNCHES == {"otp_xor_mac_edges": 0, "otp_xor_mac": 0,
+                                "otp_xor_mac_edges_seeded": 0,
+                                "otp_xor_mac_seeded": 0, **want}
+    assert tr.log.n_transfers > 0
 
 
 def _swa_inputs(B, S, H, KV, hd, dtype, seed):
