@@ -55,16 +55,27 @@ all at once) and then:
    port (``TRAINER_PATHS``): qfl and sim without security, under qkd,
    qkd_fernet and the per-edge oracle; qfl and sim under the
    parameter-shift rule on the batched executor and the per-client
-   oracle, and sim qkd under it; sim under teleport security; and one sim
-   round at 14 qubits (the tiled layer). Every launch count is set to 0
-   just before each path and read just after; each path must launch each
-   of its kernels and no other, #1 52 (qfl) and 92 (sim) times a round,
-   the layer backward 2·len(bwd_passes) launches per ansatz layer of every
-   local step on each autodiff path (qfl 60, sim 120, 14 qubits 360) and
-   none under the shift rule, the seeded OTP kernel qfl 2 and sim 4 a
-   round under qkd, qkd_fernet and the shift rule's qkd path and 2 per
-   delivered edge on the per-edge oracle (the given-pad entries never),
-   and every round's val loss must be finite and below 10 (≈ ln 7);
+   oracle, and sim qkd under it; sim under teleport security; one sim
+   round at 14 qubits (the tiled layer); and ROADMAP item 7's modes: seq
+   (2 rounds, without security and under qkd), async's staleness ring (4
+   rounds, so deferred deliveries arrive: without security, under qkd,
+   secagg, and qkd + secagg) and async qkd on the per-client oracle and
+   per-edge plane (3 rounds). Every launch count is set to 0 just before
+   each path and read just after; each path must launch each of its
+   kernels and no other, and each round exactly what the compiled plan
+   implies (``_plan_launches``: per local-training call — a stage of
+   clients, or one client on the oracle — 10 steps of 1 + L forward and L
+   backward layers, 2·len(bwd_passes) launches a backward layer, plus 12
+   forward layers of evaluation; the seeded OTP kernel twice a non-empty
+   exchange stage edge-batched and twice a delivered edge on the per-edge
+   oracle; the given-pad entries never): #1 52 (qfl) and 92 (sim) a round,
+   the layer backward qfl 60, sim 120 and 14 qubits 360, none under the
+   shift rule, the seeded OTP kernel qfl 2 and sim 4; seq (hops + 1)·40 +
+   12 of #1, async 92 (52 without a grouped secondary). Every round's val
+   loss must be finite and below 10 (≈ ln 7). At the end of the async
+   qkd and qkd + secagg paths the ring's last-round merges are held bit
+   for bit against the per-main-list oracle's merges of the same entries
+   on the card;
 6. runs the VQC at 20 qubits (one batch of 4): forward, autodiff and the
    parameter-shift rule, with their launches counted, against the same
    with the plain versions on the card; and one full-width local step of
@@ -73,14 +84,17 @@ all at once) and then:
    (≤ 1e-5), its launches counted (13 of #1, 96 of #3);
 7. runs the sim trainer on the CPU (plain path) and on the card, without
    security, under the parameter-shift rule (2 local steps of batch 8)
-   and under qkd, and holds the
-   metrics within 1e-4 and the accounting exactly equal; and one
-   drop-mode round with forced eavesdroppers on both, whose aborted edges
-   must agree;
-8. profiles one warm sim round each under qkd, under the parameter-shift
-   rule and at 14 qubits with ``torch.profiler`` and prints the
-   device-busy share, the round's device-op count and the kernels that
-   take the most device time;
+   and under qkd, and async under qkd + secagg (4 rounds), and holds the
+   metrics within 1e-4 and the accounting and delivered counts exactly
+   equal (async: the secagg merge of the card's ring, run on both
+   devices, bit-equal); and one drop-mode round with forced eavesdroppers
+   on both, whose aborted edges must agree;
+8. profiles one warm round each of sim under qkd, under the
+   parameter-shift rule and at 14 qubits, and of async under qkd and
+   under secagg, with ``torch.profiler`` and prints the device-busy
+   share, the round's device-op count and the kernels that take the most
+   device time, and the device ops of secagg's two pad calls (the send's
+   masks, the merge's corrections) at that round's shapes;
 9. holds the sliding-window attention kernel (tensor cores in bf16, CUDA
    cores in f32) against its plain version
    (f32 ≤ 2e-5; bf16 within one bf16 step of each element, see
@@ -861,6 +875,17 @@ TRAINER_PATHS = {
                           grad_method="param_shift", n_rounds=2),
     "sim_teleport": dict(mode="sim", security="teleport", n_rounds=2),
     "sim_nq14": dict(mode="sim", n_rounds=1, qubits=14),
+    # ROADMAP item 7: the serial chains of seq, and async's staleness ring
+    # over 4 rounds (deferred deliveries arrive at this trace's 30 s step)
+    "seq": dict(mode="seq", n_rounds=2),
+    "seq_qkd": dict(mode="seq", security="qkd", n_rounds=2),
+    "async": dict(mode="async", n_rounds=4),
+    "async_qkd": dict(mode="async", security="qkd", n_rounds=4),
+    "async_secagg": dict(mode="async", agg_security="secagg", n_rounds=4),
+    "async_qkd_secagg": dict(mode="async", security="qkd",
+                             agg_security="secagg", n_rounds=4),
+    "async_qkd_oracle": dict(mode="async", security="qkd", n_rounds=3,
+                             batched=False, edge_batched=False),
 }
 
 
@@ -900,43 +925,86 @@ def _path_kernels(spec: dict, edge_batched: bool, qubits: int) -> set:
     return need
 
 
-def _check_round_launches(path, spec, r, launches, transfers, layers=3):
-    """Per-round counts the design fixes: #1 52 (qfl) and 92 (sim) a round
-    at 10 local steps under autodiff; under the shift rule 96 launches of
-    #3 (4·nq·L) for every 13 of #1 (1 + L + L²) in training, beside the 12
-    of evaluation. Under autodiff every local step runs 1 + L forward
-    layers and L backward layers (the encoding layer has no gradient) of
-    2·len(bwd_passes) backward launches each: qfl 60, sim 120, 14 qubits
-    360 a round. Under qkd and qkd_fernet the seeded OTP kernel runs twice
-    a secure stage (sender and receiver): qfl 2 and sim 4 a round
-    edge-batched, 2 per delivered edge (``transfers``) on the per-edge
-    oracle; the given-pad entries never."""
+def _train_calls(tr, r: int) -> int:
+    """Local-training calls of round r, from the compiled plan: one per
+    stage of clients on the batched executor (qfl 1; sim and async 1 for
+    the secondaries if any, seq one per hop; 1 for the mains), one per
+    client on the per-client oracle."""
+    fl, groups = tr.fl, tr.plan.live_groups(r)
+    if fl.mode == "qfl":
+        return 1 if tr.batched else tr.n_sats
+    if not groups:
+        return 0
+    n_secs = sum(len(v) for v in groups.values())
+    mains = len(groups) if fl.main_trains else 0
+    if not tr.batched:
+        return n_secs + mains
+    sec_stages = (max(len(v) for v in groups.values()) if fl.mode == "seq"
+                  else int(n_secs > 0))
+    return sec_stages + int(mains > 0)
+
+
+def _plan_launches(tr, r: int, transfers: int) -> dict:
+    """The launches round r must make, derived from the compiled plan.
+    Under autodiff every local step runs 1 + L forward layers (past 13
+    qubits 1 + len(group_passes) tiled launches each) and L backward
+    layers (the encoding layer has no gradient) of 2·len(bwd_passes)
+    backward launches each, and evaluation runs 3 forwards of 1 + L
+    layers. Under qkd and qkd_fernet the seeded OTP kernel
+    runs twice a non-empty exchange stage (sender and receiver) on the
+    edge-batched plane, twice a delivered edge (``transfers``) on the
+    per-edge oracle; the given-pad entries never."""
     from repro_torch.kernels.statevec_gate import ops
-    if spec.get("security") in ("qkd", "qkd_fernet"):
-        key, want = (("otp_xor_mac_seeded", 2 * transfers)
-                     if spec.get("edge_batched", True) is False else
-                     ("otp_xor_mac_edges_seeded",
-                      {"qfl": 2, "sim": 4}[spec["mode"]]))
-        given = launches["otp_xor_mac_edges"] + launches["otp_xor_mac"]
-        if launches[key] != want or given:
+    fl, cfg = tr.fl, tr.model_cfg
+    nq, L, E = cfg.vqc_qubits, cfg.vqc_layers, fl.local_steps
+    want = {}
+    if fl.grad_method != "param_shift":
+        calls = _train_calls(tr, r)
+        layers = (calls * E * (1 + L)
+                  + (3 * (1 + L) if r % fl.eval_every == 0 else 0))
+        if nq <= 13:
+            want["statevec_gate_layer"] = layers
+        else:           # the tiled layer: pass 0, then each group pass
+            want["statevec_gate_tiled"] = layers * (
+                1 + len(ops.group_passes(nq)))
+        want["statevec_gate_layer_bwd"] = (calls * E * L * 2
+                                           * len(ops.bwd_passes(nq)))
+    if fl.security in ("qkd", "qkd_fernet"):
+        es = tr.plan.edges
+        stages = sum(int(es.ptr[r, s + 1] > es.ptr[r, s])
+                     for s in range(int(es.n_stages[r])))
+        want.update({"otp_xor_mac_edges": 0, "otp_xor_mac": 0,
+                     "otp_xor_mac_edges_seeded":
+                         2 * stages if tr.edge_batched else 0,
+                     "otp_xor_mac_seeded":
+                         0 if tr.edge_batched else 2 * transfers})
+    return want
+
+
+def _check_round_launches(path, spec, tr, r, launches, transfers):
+    """Every count ``_plan_launches`` derives, exactly; and the counts the
+    design fixes: #1 52 (qfl) and 92 (sim) a round at 10 local steps, the
+    layer backward qfl 60 and sim 120 (14 qubits 360), the seeded OTP
+    kernel qfl 2 and sim 4 a round edge-batched; under the shift rule 96
+    launches of #3 (4·nq·L) for every 13 of #1 (1 + L + L²) in training,
+    beside the 12 of evaluation."""
+    for key, want in _plan_launches(tr, r, transfers).items():
+        if launches[key] != want:
             raise PhaseError(f"{path} round {r}: {launches[key]} launches of "
-                             f"{key} (expected {want}) and {given} of the "
-                             f"given-pad entries (expected 0)")
+                             f"{key}, the plan implies {want}")
     n1, n3 = launches["statevec_gate_layer"], launches["statevec_gate_1q"]
-    if path in ("qfl", "sim") and n1 != {"qfl": 52, "sim": 92}[path]:
-        raise PhaseError(f"{path} round {r}: {n1} gate-layer launches, "
-                         f"expected {52 if path == 'qfl' else 92}")
-    if spec.get("grad_method") != "param_shift":
-        nq = spec.get("qubits", 8)
-        n_fwd = (n1 if nq <= 13 else launches["statevec_gate_tiled"]
-                 // (1 + len(ops.group_passes(nq))))
-        want = ((n_fwd - 12) // (1 + layers) * layers
-                * 2 * len(ops.bwd_passes(nq)))
-        got = launches["statevec_gate_layer_bwd"]
-        if got != want or (path in ("qfl", "sim")
-                           and got != {"qfl": 60, "sim": 120}[path]):
-            raise PhaseError(f"{path} round {r}: {got} layer-backward "
-                             f"launches, expected {want}")
+    fixed = {"qfl": (52, 60), "sim": (92, 120)}
+    if path in fixed and (n1, launches["statevec_gate_layer_bwd"]) \
+            != fixed[path]:
+        raise PhaseError(f"{path} round {r}: {n1} gate-layer and "
+                         f"{launches['statevec_gate_layer_bwd']} backward "
+                         f"launches, expected {fixed[path]}")
+    if (path in ("qfl_qkd", "sim_qkd")
+            and launches["otp_xor_mac_edges_seeded"]
+            != {"qfl_qkd": 2, "sim_qkd": 4}[path]):
+        raise PhaseError(f"{path} round {r}: "
+                         f"{launches['otp_xor_mac_edges_seeded']} seeded "
+                         f"OTP stage launches")
     if (spec.get("grad_method") == "param_shift" and spec.get("qubits", 8) == 8
             and (n1 - 12) * 96 != n3 * 13):
         raise PhaseError(f"{path} round {r}: {n3} single-gate launches for "
@@ -975,9 +1043,16 @@ def phase_trainer(torch, kops, trace, sats, server):
             m = tr.run_round(r)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
+            es = tr.plan.edges
             rounds.append({
                 "round": r, "seconds": dt,
                 "transfers": tr.log.n_transfers - sent,
+                # async: updates arriving (window opened) and merged (fresh
+                # in a primary main's buffer) this round
+                "arrivals": (int(es.ptr[r, 1] - es.ptr[r, 0])
+                             if fl.mode == "async" else None),
+                "merged": (int(tr.plan.stale.merge_count[r].sum())
+                           if fl.mode == "async" else None),
                 "launches": {k: v - before[k] for k, v in
                              _counts(kops).items()},
                 "val_loss": m.server_val_loss, "val_acc": m.server_val_acc,
@@ -992,7 +1067,7 @@ def phase_trainer(torch, kops, trace, sats, server):
             if fl.security == "teleport" and not m.teleport_fidelity > 0.999:
                 raise PhaseError(f"{path} round {r}: teleport fidelity "
                                  f"{m.teleport_fidelity}")
-            _check_round_launches(path, spec, r, rounds[-1]["launches"],
+            _check_round_launches(path, spec, tr, r, rounds[-1]["launches"],
                                   rounds[-1]["transfers"])
         launches[path] = _counts(kops)
         need = _path_kernels(spec, edge_batched, qubits)
@@ -1002,6 +1077,14 @@ def phase_trainer(torch, kops, trace, sats, server):
                                  f"times; it runs {sorted(need)}")
         report[path] = {"setup_s": setup_s, "rounds": rounds}
         finals[path] = tr
+        if fl.mode in ("seq", "async"):
+            seconds = [round(x["seconds"], 4) for x in rounds]
+            rs = range(fl.n_rounds)
+            tail = (f"rounds with deliveries "
+                    f"{[x['round'] for x in rounds if x['merged']]}"
+                    if fl.mode == "async" else
+                    f"hops {[int(tr.plan.edges.n_stages[r]) - 1 for r in rs]}")
+            print(f"trainer {path}: round seconds {seconds}, {tail}")
     a, b = finals["sim_qkd"], finals["sim_qkd_oracle"]
     for k in a.global_params:
         if not torch.equal(a.global_params[k].view(torch.int32),
@@ -1014,7 +1097,53 @@ def phase_trainer(torch, kops, trace, sats, server):
                              f"at round {ma.round}")
     print("trainer: edge-batched == per-edge oracle, bit-exact params and "
           "equal accounting over 3 sim qkd rounds")
+    checked = {p: _check_ring_vs_list(torch, finals[p])
+               for p in ("async_qkd", "async_qkd_secagg")}
+    print(f"trainer: the ring's last-round merges == the per-main-list "
+          f"oracle's merges of the same entries, bit for bit: "
+          f"{json.dumps(checked)}")
     return launches, report
+
+
+def _ring_entries(tr, r: int, g: int) -> list:
+    """The entries main ``g``'s merge took from the ring at round r, as the
+    per-main-list oracle holds them: [(payload, sat, born)] in (sat, born)
+    order."""
+    import numpy as np
+    st = tr.plan.stale
+    out = []
+    for s, slot in np.argwhere(st.merge_born[r, g] >= 0):
+        p = ({"y": tr._ring_y[s, slot].clone()}
+             if tr.fl.agg_security == "secagg" else
+             {k: v[s, slot].clone() for k, v in tr._ring.items()})
+        out.append((p, int(s), int(st.merge_born[r, g, s, slot])))
+    return sorted(out, key=lambda e: (e[1], e[2]))
+
+
+def _check_ring_vs_list(torch, tr) -> int:
+    """The ring's merge at the run's last round (nothing has written the
+    ring since) against the oracle's merge of the same entries on the card:
+    ``_list_merge`` (the one float reduction both executors call) or
+    ``_secagg_merge_oracle`` (masks recovered from the key registry). Bit
+    for bit at every main with entries; returns how many were held."""
+    r = tr.plan.n_rounds - 1
+    ring = tr._ring_merge(r)
+    n = 0
+    for g, m in enumerate(tr.plan.live_groups(r)):
+        fresh = _ring_entries(tr, r, g)
+        if not fresh:
+            continue
+        got = (tr._secagg_merge_oracle(m, fresh)
+               if tr.fl.agg_security == "secagg" else tr._list_merge(g, fresh))
+        for k in got:
+            if not torch.equal(got[k].view(torch.int32),
+                               ring[k][g].view(torch.int32)):
+                raise PhaseError(f"ring and list merges differ at round {r}, "
+                                 f"main {m}, leaf {k}")
+        n += 1
+    if n == 0:
+        raise PhaseError(f"no merge at the last round of {tr.fl}")
+    return n
 
 
 @contextlib.contextmanager
@@ -1201,7 +1330,11 @@ def phase_cross_device(torch, trace, sats, server):
                                 local_steps=2, batch_size=8), frozenset()),
              "sim_qkd": (dict(security="qkd", n_rounds=2), frozenset()),
              "sim_qkd_drop": (dict(security="qkd", n_rounds=1,
-                                   on_qber_abort="drop"), eav)}
+                                   on_qber_abort="drop"), eav),
+             # the staleness ring with secagg, deferred deliveries included
+             "async_qkd_secagg": (dict(mode="async", security="qkd",
+                                       agg_security="secagg", n_rounds=4),
+                                  frozenset())}
     worst = {}
     for name, (kw, eavs) in cases.items():
         fl = SatQFLConfig(**{"mode": "sim", "local_steps": 10,
@@ -1234,6 +1367,21 @@ def phase_cross_device(torch, trace, sats, server):
                              f"and cpu")
         if eavs and not a.aborted_edges:
             raise PhaseError(f"{name}: no edge aborted under eavesdropping")
+        if fl.agg_security == "secagg":
+            # the secagg merge of the same ring on both devices: integer
+            # masks and recovery, then one float32 division a word
+            r = fl.n_rounds - 1
+            b._ring_y = a._ring_y.cpu()
+            b.global_params = {k: v.cpu() for k, v in a.global_params.items()}
+            ma, mb = a._ring_merge(r), b._ring_merge(r)
+            for k in ma:
+                if not torch.equal(ma[k].cpu().view(torch.int32),
+                                   mb[k].view(torch.int32)):
+                    raise PhaseError(f"{name}: the secagg merge of one ring "
+                                     f"differs between cuda and cpu ({k})")
+            print(f"cross-device {name}: round {r}'s secagg merge of the "
+                  f"card's ring bit-equal on cuda and cpu; delivered "
+                  f"{[m.participants for m in a.history]} on both")
         print(f"cross-device {name}: max metric gap {gap:.3e}, "
               f"{len(a.aborted_edges)} aborted edges on both")
         if gap > 1e-4:
@@ -1247,6 +1395,8 @@ PROFILED_PATHS = {
     "sim_qkd": dict(mode="sim", security="qkd"),
     "sim_shift": dict(mode="sim", grad_method="param_shift"),
     "sim_nq14": dict(mode="sim", qubits=14),
+    "async_qkd": dict(mode="async", security="qkd"),
+    "async_secagg": dict(mode="async", agg_security="secagg"),
 }
 
 
@@ -1275,6 +1425,42 @@ def phase_profile(torch, trace, sats, server):
         if prof:
             print(f"profile {name}: {prof['device_ops']} device ops in one "
                   f"warm round, {prof['device_busy_share']:.3f} busy")
+        if fl.agg_security == "secagg":
+            _profile_secagg_pads(torch, tr)
+
+
+def _profile_secagg_pads(torch, tr):
+    """Device ops of the secagg pad calls at round 1's shapes: the send's
+    quantize + mask of every row (one pad call over (rows, partners)) and
+    the merge's corrections (one pad call over (mains, corrections))."""
+    import numpy as np
+    from repro_torch.security.otp import secagg_mask_rows, sum_signed_pads
+    st, r, K, N = tr.plan.stale, 1, tr._frame, tr.n_sats
+    rows = tr._broadcast_global(K)
+    seeds, signs = (np.zeros((K,) + st.pair_seed.shape[2:], np.int64)
+                    for _ in range(2))
+    wq = np.ones((K,), np.int64)
+    seeds[:N], signs[:N], wq[:N] = (st.pair_seed[r], st.pair_sign[r],
+                                    st.wq)
+    seeds, signs, wq = (torch.from_numpy(a).cuda()
+                        for a in (seeds, signs, wq))
+    cs, cg = (np.zeros((K,) + st.corr_seed.shape[2:], np.int64)
+              for _ in range(2))
+    cs[:st.n_mains_max], cg[:st.n_mains_max] = (st.corr_seed[r],
+                                                st.corr_sign[r])
+    cs, cg = torch.from_numpy(cs).cuda(), torch.from_numpy(cg).cuda()
+    for label, fn in (
+            (f"send {tuple(seeds.shape)} x {tr._q_words} words",
+             lambda: secagg_mask_rows(rows, wq, seeds, signs)),
+            (f"merge corrections {tuple(cs.shape)} x {tr._q_words} words",
+             lambda: sum_signed_pads(cs, cg, tr._q_words))):
+        fn()
+        prof = _device_profile(torch, fn)
+        print(f"profile secagg pads, {label}: " + (
+            f"{prof['device_ops']} device ops, "
+            f"{prof['device_busy_s'] * 1e3:.3f} ms device, "
+            f"{prof['wall_s_under_profiler'] * 1e3:.3f} ms wall"
+            if prof else "not measured"))
 
 
 # --------------------------------------------------------------------------

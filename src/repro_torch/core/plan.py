@@ -3,18 +3,21 @@
 A ``ConstellationTrace`` + ``SatQFLConfig`` compiles ONCE into dense
 per-round numpy arrays — roles S_p(t), the secondary→primary assignment,
 the participation mask P_i(t), hops and latency, window waits, group
-sizes, FedAvg weights, and the EdgeSchedule's per-stage CSR of every
-exchange a round performs. The trainer reads groups, weights and stages
-from the plan instead of re-deriving them inside the round loop.
+sizes, FedAvg weights, the EdgeSchedule's per-stage CSR of every exchange
+a round performs and, for mode ``async``, the StalenessSchedule of the
+bounded-staleness buffer. The trainer reads groups, weights, stages and
+the buffer's merge masks from the plan instead of re-deriving them inside
+the round loop.
 
-The port compiles plans for modes ``qfl`` and ``sim`` under
-``security`` none, qkd or qkd_fernet, with every fault rate at 0. Given a
-key registry (the trainer's :class:`~repro_torch.security.keys.KeyManager`)
-the EdgeSchedule carries per-(round, edge) key material, every edge
-established in one batched BB84; ``with_seeds=True`` also fills the
-per-(round, satellite) ``seeds``. There is no staleness or fault schedule
-yet. Other configurations raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+The port compiles plans for all four modes (qfl, sim, seq, async), every
+security mode and ``agg_security`` none or secagg, with every fault rate
+at 0. Given a key registry (the trainer's
+:class:`~repro_torch.security.keys.KeyManager`) the EdgeSchedule carries
+per-(round, edge) key material, every edge established in one batched
+BB84; ``with_seeds=True`` also fills the per-(round, satellite) ``seeds``.
+A fault plane (ROADMAP queue 1, item 8) raises ``NotImplementedError``;
+until it comes, ``_live_groups_of`` is the one place where crashed
+satellites would leave the groups.
 """
 from __future__ import annotations
 
@@ -28,7 +31,9 @@ from repro_torch.constellation.topology import (
 )
 from repro_torch.core.flconfig import SatQFLConfig
 from repro_torch.security.keys import (KeyManager, canonical_edge,
-                                       mac_key_mix, round_seed_mix)
+                                       mac_key_mix, pairwise_mask_seed,
+                                       round_seed_mix)
+from repro_torch.security.otp import SECAGG_CLIP, SECAGG_W_MAX
 
 GROUND = -1    # edge endpoint id for the ground station ("gs")
 
@@ -38,9 +43,10 @@ class EdgeSchedule:
     """Every exchange of every round, stacked over an edge axis.
 
     Dense ``(R, E_max)`` arrays laid out stage-major within each round (a
-    stage = one batched dispatch: the ISL uplinks of a ``sim`` round, or
-    the feeder uplinks); ``ptr`` bounds each (round, stage) CSR-style and
-    the tail past ``ptr[r, -1]`` is padding (``mask`` False).
+    stage = one batched dispatch: the ISL uplinks of a ``sim`` round, the
+    compiled arrivals of an ``async`` round, one hop of every ``seq``
+    chain, or the feeder uplinks); ``ptr`` bounds each (round, stage)
+    CSR-style and the tail past ``ptr[r, -1]`` is padding (``mask`` False).
 
     Key material (seed/mac_r/mac_s/abort) is filled only when a key
     registry was given at compile time (``with_keys``): pad seeds come
@@ -58,6 +64,7 @@ class EdgeSchedule:
     first: np.ndarray         # (R, E_max) bool — first planned use of the edge
     abort: np.ndarray         # (R, E_max) bool — QBER abort at establishment
     born: np.ndarray          # (R, E_max) int — round the payload was trained
+                              #   (= r except async deferred deliveries)
     seed: np.ndarray          # (R, E_max) uint32 — per-(born, edge) pad seed
     mac_r: np.ndarray         # (R, E_max) uint32 — MAC evaluation point
     mac_s: np.ndarray         # (R, E_max) uint32 — MAC blind
@@ -70,6 +77,63 @@ class EdgeSchedule:
         a = int(self.src[r, j])
         b = "gs" if int(self.dst[r, j]) == GROUND else int(self.dst[r, j])
         return canonical_edge((a, b))
+
+
+@dataclass(frozen=True)
+class StalenessSchedule:
+    """Compiled async bounded-staleness buffer (the ring frame).
+
+    A secondary trains every round it is grouped, but its update moves only
+    when the (sat, main) ISL window opens: an update *born* at round ``b``
+    is delivered at the first mains-bearing round whose trace time has
+    passed the window's opening, enters its main's buffer, and merges at
+    the first round that main is primary again if its staleness ``r − b``
+    is within Δ_max; otherwise it is discarded. That lifecycle is a pure
+    function of the trace, so it compiles into dense arrays, and the
+    batched executor's whole async merge is one scatter into the ring and
+    one masked weighted reduction.
+
+    Ring frame: ``(N + 1, D)`` per round and main slot, D = Δ_max + 1,
+    indexed by (satellite, born mod D); row N is the scratch row for masked
+    writes. An overwritten slot's previous occupant is ≥ D rounds old,
+    already beyond Δ_max.
+
+    The secagg columns (``fl.agg_security='secagg'``) carry the pairwise
+    masking schedule: per-sender signed mask seeds (cohort = the born
+    round's group) and per-merge signed correction streams cancelling
+    every cohort partner absent from that merge (QBER-aborted,
+    window-dropped or still in flight).
+    """
+    D: int                        # ring depth Δ_max + 1
+    n_mains_max: int              # G — merge rows per round
+    tx_wait_s: np.ndarray         # (R, N) float — seconds a round-r sender
+                                  #   waits for its transmit window (inf =
+                                  #   never reopens; engines clamp to the
+                                  #   comm model's mean window wait)
+    delay_rounds: np.ndarray      # (R, N) int — rounds until the window
+                                  #   opens for a round-r sender; -1 never
+    deliver_round: np.ndarray     # (R, N) int — delivery round of a round-r
+                                  #   update; -1 = dropped (windowless /
+                                  #   stale on arrival / beyond the horizon)
+    send_slot: np.ndarray         # (R, N) int — ring slot (born mod D)
+                                  #   written by a round-r sender; -1 none
+    main_ids: np.ndarray          # (R, G) int — mains in engine iteration
+                                  #   order; -1 pad
+    merge_w: np.ndarray           # (R, G, N+1, D) float32 — normalized
+                                  #   FedAvg weight of each ring cell in this
+                                  #   round's merge (0 = not merged)
+    merge_born: np.ndarray        # (R, G, N+1, D) int — born round of each
+                                  #   merged cell; -1 invalid
+    merge_any: np.ndarray         # (R, G) bool — any entry merged
+    merge_count: np.ndarray       # (R, G) int32 — delivered count per main
+    # --- secagg (dropout-tolerant secure aggregation) -------------------
+    with_secagg: bool
+    wq: np.ndarray                # (N,) int32 — integer FedAvg weights
+    pair_seed: np.ndarray         # (R, N, P) uint32 — sender mask seeds
+    pair_sign: np.ndarray         # (R, N, P) int32 — +1 / −1 / 0 pad
+    sum_wq: np.ndarray            # (R, G) int32 — Σ wq over merged entries
+    corr_seed: np.ndarray         # (R, G, C) uint32 — merge corrections
+    corr_sign: np.ndarray         # (R, G, C) int32
 
 
 @dataclass(frozen=True)
@@ -93,10 +157,17 @@ class RoundPlan:
                                   #   (``with_seeds``; else 0)
     weights: np.ndarray           # (N,) float32 — FedAvg aggregation weights w_i
     edges: EdgeSchedule | None = None
+    stale: StalenessSchedule | None = None  # async bounded-staleness buffer
 
     def groups(self, r: int) -> dict[int, list[int]]:
         """{main: [secondaries]} at round r (the paper's {SecSat} grouping)."""
         return _groups_of(self.assignment[r], self.primary_mask[r])
+
+    def live_groups(self, r: int) -> dict[int, list[int]]:
+        """The groups both engines iterate and every stage was compiled
+        from: ``groups(r)`` minus crashed secondaries (``_live_groups_of``;
+        without a fault plane, ``groups(r)``)."""
+        return _live_groups_of(self.groups(r))
 
     def unreachable(self, r: int) -> list[int]:
         return [int(s) for s in np.where(self.assignment[r] < 0)[0]]
@@ -141,16 +212,43 @@ def _groups_of(assignment_r: np.ndarray, prim_r: np.ndarray):
     return out
 
 
-def _round_stages(fl: SatQFLConfig, assignment_r, prim_r, n_sats: int):
-    """Edge list (src, dst, link, conc) of each dispatch stage of one
-    round, in the order the trainer walks it: qfl = one feeder stage;
-    sim = ISL uplinks, then the mains' feeder uplinks."""
+def _live_groups_of(groups: dict) -> dict:
+    """The groups minus crash-faulted secondaries: the one place the fault
+    plane (ROADMAP queue 1, item 8) plugs into the schedules. Without it
+    no satellite crashes, so every group is live."""
+    return groups
+
+
+def _round_stages(fl: SatQFLConfig, assignment_r, prim_r, n_sats: int,
+                  arrivals_r=None):
+    """Edge list (src, dst, link, conc, born) of each dispatch stage of
+    one round, in the order the trainer walks it, ``born`` -1 for this
+    round: qfl = one feeder stage; sim = ISL uplinks, then feeder; async =
+    the staleness schedule's compiled ARRIVALS (updates whose window has
+    opened by this round, possibly born rounds earlier), then feeder; seq
+    = one stage per chain hop, then feeder."""
+    def now(edges):
+        return [(a, b, lk, c, -1) for (a, b, lk, c) in edges]
+
     if fl.mode == "qfl":
-        return [[(s, GROUND, 1, 1) for s in range(n_sats)]]
-    groups = _groups_of(assignment_r, prim_r)
-    return [[(s, m, 0, max(len(groups[m]), 1))
-             for m in groups for s in groups[m]],
-            [(m, GROUND, 1, 1) for m in groups]]
+        return [now([(s, GROUND, 1, 1) for s in range(n_sats)])]
+    groups = _live_groups_of(_groups_of(assignment_r, prim_r))
+    mains = list(groups)
+    stages = []
+    if fl.mode == "sim":
+        stages.append(now([(s, m, 0, max(len(groups[m]), 1))
+                           for m in mains for s in groups[m]]))
+    elif fl.mode == "async":
+        stages.append([(s, m, 0, 1, b) for (s, m, b) in (arrivals_r or [])])
+    elif fl.mode == "seq":
+        chains = [groups[m] for m in mains]
+        for hop in range(max((len(c) for c in chains), default=0)):
+            stages.append(now([(c[hop], mains[g], 0, 1)
+                               for g, c in enumerate(chains) if len(c) > hop]))
+    else:
+        raise ValueError(fl.mode)
+    stages.append(now([(m, GROUND, 1, 1) for m in mains]))
+    return stages
 
 
 def _seed_schedule(assignment, prim, fl: SatQFLConfig, keymgr: KeyManager):
@@ -178,10 +276,11 @@ def _seed_schedule(assignment, prim, fl: SatQFLConfig, keymgr: KeyManager):
 
 
 def _edge_schedule(fl: SatQFLConfig, assignment, prim,
-                   keymgr: KeyManager | None) -> EdgeSchedule:
+                   keymgr: KeyManager | None, arrivals=None) -> EdgeSchedule:
     """Compile the per-round exchange plane (see EdgeSchedule)."""
     R, N = assignment.shape
-    per_round = [_round_stages(fl, assignment[r], prim[r], N)
+    per_round = [_round_stages(fl, assignment[r], prim[r], N,
+                               arrivals[r] if arrivals is not None else None)
                  for r in range(R)]
     S_max = max(len(st) for st in per_round)
     E_max = max(max(sum(len(s) for s in st) for st in per_round), 1)
@@ -202,11 +301,11 @@ def _edge_schedule(fl: SatQFLConfig, assignment, prim,
     for r, stages in enumerate(per_round):
         j = 0
         for si, stage in enumerate(stages):
-            for (a, b, lk, c) in stage:
+            for (a, b, lk, c, bn) in stage:
                 e = canonical_edge((a, "gs" if b == GROUND else b))
                 src[r, j], dst[r, j] = a, b
                 link[r, j], conc[r, j], mask[r, j] = lk, c, True
-                born[r, j] = r
+                born[r, j] = r if bn < 0 else bn
                 cells[r, j] = e
                 if e not in seen:
                     seen[e] = None
@@ -221,7 +320,9 @@ def _edge_schedule(fl: SatQFLConfig, assignment, prim,
         for (r, j), e in cells.items():
             ek = info[e]
             abort[r, j] = ek.compromised
-            # pad seeds fold in the BORN round: one pad per (edge, born)
+            # pad seeds fold in the BORN round: one pad per (edge, born),
+            # never reused even when several deferred deliveries cross the
+            # same edge in one round
             seed[r, j] = round_seed_mix(ek.seed, born[r, j])
             mac_r[r, j], mac_s[r, j] = mac_key_mix(seed[r, j])
     return EdgeSchedule(n_stages=np.asarray([len(st) for st in per_round]),
@@ -231,18 +332,198 @@ def _edge_schedule(fl: SatQFLConfig, assignment, prim,
                         with_keys=keymgr is not None)
 
 
+def _async_send_schedule(fl: SatQFLConfig, assignment, prim,
+                         trace: ConstellationTrace, t_idx):
+    """Phase A of the staleness compiler: the send/arrival plan.
+
+    A secondary trains DURING its round's access window, so its update can
+    move only at the next trace step its (sat, main) ISL is open: that
+    instant is ``tx_wait_s`` after the round's step, and the update is
+    delivered at the first mains-bearing round at or past it. It is dropped
+    when the window never reopens inside the trace, the delivery would land
+    beyond the horizon, or it would already exceed Δ_max on arrival, so
+    async updates always merge with staleness ≥ 1.
+
+    Every transmission succeeds: the fault plane's flapped attempts and
+    their retransmit ledger come with ROADMAP queue 1, item 8.
+
+    Returns (delay_rounds, deliver_round, tx_wait_s, arrivals, groups per
+    round); ``arrivals[r]`` lists (sat, dest main, born) in delivery order
+    — born ascending, then the born round's group order — the order the
+    per-main-list oracle's outbox drains.
+    """
+    R, N = assignment.shape
+    t_idx = np.asarray(t_idx, np.int64)
+    step = (float(trace.times_s[1] - trace.times_s[0])
+            if trace.n_steps > 1 else 0.0)
+    groups_r = [_live_groups_of(_groups_of(assignment[r], prim[r]))
+                for r in range(R)]
+    has_mains = [len(g) > 0 for g in groups_r]
+    delay = np.full((R, N), -1, np.int64)
+    deliver = np.full((R, N), -1, np.int64)
+    tx_wait = np.full((R, N), np.inf)
+    for b in range(R):
+        t = int(t_idx[b])
+        for m, secs in groups_r[b].items():
+            for s in secs:
+                hits = np.where(trace.ss_access[s, m, t + 1:])[0]
+                if len(hits) == 0:
+                    continue            # the window never reopens
+                k_tx = t + 1 + int(hits[0])
+                tx_wait[b, s] = (k_tx - t) * step
+                ks = np.where(t_idx[b:] >= k_tx)[0]
+                if len(ks) == 0:
+                    continue            # opens past the round horizon
+                delay[b, s] = int(ks[0])
+                rd = next((k for k in range(b + int(ks[0]), R)
+                           if has_mains[k]), None)
+                if rd is None or rd - b > fl.max_staleness:
+                    continue            # too stale to bother transmitting
+                deliver[b, s] = rd
+    arrivals = [[] for _ in range(R)]
+    for b in range(R):
+        for m, secs in groups_r[b].items():
+            for s in secs:
+                if deliver[b, s] >= 0:
+                    arrivals[int(deliver[b, s])].append((int(s), int(m), b))
+    return delay, deliver, tx_wait, arrivals, groups_r
+
+
+def _staleness_schedule(fl: SatQFLConfig, delay, deliver, tx_wait, arrivals,
+                        groups_r, weights, es: EdgeSchedule,
+                        keymgr: KeyManager | None) -> StalenessSchedule:
+    """Phase B: simulate the buffer's lifecycle into dense merge arrays.
+
+    Runs the pending-queue mechanics the per-main-list oracle runs live —
+    arrivals append (minus QBER-aborted edges when the exchange is
+    secured), each current main merges its fresh entries and discards the
+    stale ones — and records the outcome as ring-frame masks. For secagg it
+    also deals the pairwise mask shares of every born round's cohort and
+    compiles each merge's signed corrections for absent partners.
+    """
+    R, N = delay.shape
+    D = fl.max_staleness + 1
+    G = max(max((len(g) for g in groups_r), default=1), 1)
+    secagg = fl.agg_security == "secagg" and keymgr is not None
+
+    # the engines abort on compromised edges under every security but none
+    aborted = {}
+    if es.with_keys and fl.security != "none" and keymgr is not None:
+        for r in range(R):
+            for (s, m, _b) in arrivals[r]:
+                e = canonical_edge((s, m))
+                if e not in aborted:
+                    aborted[e] = keymgr.get(e).compromised
+
+    main_ids = np.full((R, G), -1, np.int64)
+    send_slot = np.full((R, N), -1, np.int64)
+    merge_w = np.zeros((R, G, N + 1, D), np.float32)
+    merge_born = np.full((R, G, N + 1, D), -1, np.int64)
+    merge_any = np.zeros((R, G), bool)
+    merge_count = np.zeros((R, G), np.int32)
+
+    wq = np.maximum(1, np.round(
+        np.asarray(weights, np.float64) * SECAGG_W_MAX
+        / max(float(np.max(weights)), 1e-9))).astype(np.int32)
+    P = max(max((len(secs) for g in groups_r for secs in g.values()),
+                default=1) - 1, 1)
+    pair_seed = np.zeros((R, N, P), np.uint32)
+    pair_sign = np.zeros((R, N, P), np.int32)
+    sum_wq = np.zeros((R, G), np.int32)
+
+    pair_base = {}
+    if secagg:
+        pairs = sorted({canonical_edge((s, s2))
+                        for g in groups_r for secs in g.values()
+                        for s in secs for s2 in secs if s != s2},
+                       key=str)
+        pair_base = keymgr.share_edges(pairs)
+        for b in range(R):
+            for secs in groups_r[b].values():
+                for s in secs:
+                    for k, s2 in enumerate(x for x in secs if x != s):
+                        pair_seed[b, s, k] = pairwise_mask_seed(
+                            pair_base[canonical_edge((s, s2))], b)
+                        pair_sign[b, s, k] = 1 if s < s2 else -1
+
+    # the buffer simulation (mirrors the oracle's live lists)
+    pending: dict[int, list] = {}
+    batches: dict[tuple, list] = {}   # (r, g) -> merged [(s, born)]
+    for b in range(R):
+        for secs in groups_r[b].values():
+            for s in secs:
+                if deliver[b, s] >= 0:
+                    send_slot[b, s] = b % D
+    for r in range(R):
+        mains = list(groups_r[r])
+        main_ids[r, :len(mains)] = mains
+        for (s, m, b) in arrivals[r]:
+            if aborted.get(canonical_edge((s, m)), False):
+                continue                    # QBER abort: update dropped
+            pending.setdefault(m, []).append((s, b))
+        for g, m in enumerate(mains):
+            fresh = sorted([(s, b) for (s, b) in pending.get(m, [])
+                            if r - b <= fl.max_staleness])
+            pending[m] = []                 # merged or stale-discarded
+            batches[(r, g)] = fresh
+            if not fresh:
+                continue
+            ws = [float(weights[s]) for s, _ in fresh]
+            wsum = sum(ws)
+            for (s, b), w in zip(fresh, ws):
+                merge_w[r, g, s, b % D] = np.float32(w / wsum)
+                merge_born[r, g, s, b % D] = b
+            merge_any[r, g] = True
+            merge_count[r, g] = len(fresh)
+            sum_wq[r, g] = int(sum(int(wq[s]) for s, _ in fresh))
+            if secagg and sum_wq[r, g] * SECAGG_CLIP >= 2 ** 31:
+                # |Σ w·q| must stay below 2^31 or the aggregate wraps into
+                # garbage — identically on both executors, so no parity
+                # check could catch it
+                raise ValueError(
+                    f"secagg merge batch at round {r} (Σw={sum_wq[r, g]}) "
+                    f"overflows the int32 fixed-point budget; reduce the "
+                    f"constellation/buffer size or Δ_max")
+
+    # secagg merge corrections: absent cohort partners
+    corr: dict[tuple, list] = {}
+    C = 1
+    if secagg:
+        for (r, g), fresh in batches.items():
+            inset = set(fresh)
+            m = int(main_ids[r, g])
+            lst = []
+            for (s, b) in fresh:
+                for s2 in groups_r[b][m]:
+                    if s2 == s or (s2, b) in inset:
+                        continue            # partner merges here: cancels
+                    lst.append((pairwise_mask_seed(
+                        pair_base[canonical_edge((s, s2))], b),
+                        -(1 if s < s2 else -1)))
+            if lst:
+                corr[(r, g)] = lst
+                C = max(C, len(lst))
+    corr_seed = np.zeros((R, G, C), np.uint32)
+    corr_sign = np.zeros((R, G, C), np.int32)
+    for (r, g), lst in corr.items():
+        for k, (sd, sg) in enumerate(lst):
+            corr_seed[r, g, k] = sd
+            corr_sign[r, g, k] = sg
+
+    return StalenessSchedule(
+        D=D, n_mains_max=G, tx_wait_s=tx_wait, delay_rounds=delay,
+        deliver_round=deliver, send_slot=send_slot, main_ids=main_ids,
+        merge_w=merge_w, merge_born=merge_born, merge_any=merge_any,
+        merge_count=merge_count, with_secagg=secagg, wq=wq,
+        pair_seed=pair_seed, pair_sign=pair_sign, sum_wq=sum_wq,
+        corr_seed=corr_seed, corr_sign=corr_sign)
+
+
 def check_supported(fl: SatQFLConfig):
-    """Raise ``NotImplementedError`` for what this slice does not run."""
-    if fl.mode not in ("qfl", "sim"):
-        raise NotImplementedError(
-            f"mode={fl.mode!r} is not ported yet (ROADMAP queue 1, item 7: "
-            f"seq + async v2 + secagg)")
-    if fl.agg_security != "none":
-        raise NotImplementedError(
-            "agg_security='secagg' is not ported yet (ROADMAP queue 1, "
-            "item 7: seq + async v2 + secagg)")
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    the fault plane."""
     if (fl.link_flap_rate > 0 or fl.crash_rate > 0 or fl.straggler_rate > 0
-            or fl.corrupt_rate > 0):
+            or fl.corrupt_rate > 0 or fl.max_retries > 0):
         raise NotImplementedError(
             "fault injection is not ported yet (ROADMAP queue 1, item 8: "
             "fault plane + checkpoints)")
@@ -257,10 +538,12 @@ def compile_round_plan(trace: ConstellationTrace, fl: SatQFLConfig, *,
     sample_counts — per-satellite dataset sizes for FedAvg weighting
     (used when ``fl.weight_by_samples``); keymgr — a QKD key registry (the
     trainer's), whose edge keys fill the EdgeSchedule's key material;
-    with_seeds — also fill the per-satellite ``seeds``, with a registry
-    made from ``fl.seed`` on ``device`` where none is given. Unlike the
-    JAX package, ``with_seeds`` defaults to False: a plan without a
-    registry runs no BB84 (the trainer passes its own).
+    with_seeds — also fill the per-satellite ``seeds``. Where no registry
+    is given, one is made from ``fl.seed`` on ``device`` for
+    ``with_seeds`` and for secagg (whose pairwise mask shares need one even
+    under ``security="none"``). Unlike the JAX package, ``with_seeds``
+    defaults to False: a plan without a registry runs no BB84 (the trainer
+    passes its own).
     """
     check_supported(fl)
     t_idx = round_steps(trace, fl.n_rounds, round_stride)
@@ -287,13 +570,24 @@ def compile_round_plan(trace: ConstellationTrace, fl: SatQFLConfig, *,
     else:
         weights = np.ones((N,), np.float32)
 
+    if keymgr is None and (with_seeds or fl.agg_security == "secagg"):
+        keymgr = KeyManager(prng.PRNGKey(fl.seed + 7, device),
+                            n_qkd_bits=fl.qkd_bits)
     if with_seeds:
-        if keymgr is None:
-            keymgr = KeyManager(prng.PRNGKey(fl.seed + 7, device),
-                                n_qkd_bits=fl.qkd_bits)
         seeds = _seed_schedule(assignment, prim, fl, keymgr)
     else:
         seeds = np.zeros((R, N), np.uint32)
+
+    # async: the send/arrival plan first — the edge schedule's async
+    # uplink stage IS the arrival schedule
+    arrivals = stale = None
+    if fl.mode == "async":
+        delay, deliver, tx_wait, arrivals, groups_r = _async_send_schedule(
+            fl, assignment, prim, trace, t_idx)
+    edges = _edge_schedule(fl, assignment, prim, keymgr, arrivals)
+    if fl.mode == "async":
+        stale = _staleness_schedule(fl, delay, deliver, tx_wait, arrivals,
+                                    groups_r, weights, edges, keymgr)
 
     return RoundPlan(
         n_rounds=R, n_sats=N,
@@ -303,4 +597,4 @@ def compile_round_plan(trace: ConstellationTrace, fl: SatQFLConfig, *,
         part_mask=part.astype(np.float32), hops=hops, latency_s=lat,
         window_wait_s=_window_waits(trace, t_idx, assignment, prim),
         group_size=group_size, seeds=seeds, weights=weights,
-        edges=_edge_schedule(fl, assignment, prim, keymgr))
+        edges=edges, stale=stale)

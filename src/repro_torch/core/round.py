@@ -1,11 +1,16 @@
 """Host-orchestrated sat-QFL rounds — paper Algorithm 1 (port of
-``repro.core.round``, modes ``qfl`` and ``sim``, security none, qkd,
-qkd_fernet and teleport; gradients by autodiff or parameter shift).
+``repro.core.round``: modes qfl, sim, seq and async; security none, qkd,
+qkd_fernet and teleport; ``agg_security`` none or secagg; gradients by
+autodiff or parameter shift).
 
-Roles, groups, weights and the exchange stages come from the compiled
-:class:`~repro_torch.core.plan.RoundPlan`; every transfer is accounted by
-the communication-time model; local training is the VQC on each
-satellite's private data.
+Roles, groups, weights, the exchange stages and the async buffer's
+lifecycle come from the compiled :class:`~repro_torch.core.plan.RoundPlan`;
+every transfer is accounted by the communication-time model; local
+training is the VQC on each satellite's private data. Per mode a group
+merges as: sim, parallel uploads averaged; seq, a serial chain (each hop
+trains on the previous hop's model and a QBER-aborted hop reverts the
+chain); async, the bounded-staleness buffer below. Mains then train,
+uplink over the feeder, and the ground station averages.
 
 **Constellation-batched executor (default).** Every participating client
 of a stage is one row of a stacked client axis, padded to one fixed frame
@@ -13,32 +18,51 @@ of pow2(n_sats) rows: local training for the whole stage is one pass of
 ``core.localtrain`` over that axis (the VQC's gate layers run as the CUDA
 kernel over all rows at once), and aggregation is one weighted reduction
 over the rows. Pad rows train throwaway copies; their optimizer slots
-scatter into a scratch row (index n_sats) that nothing reads.
+scatter into a scratch row (index n_sats) that nothing reads. seq trains
+hop h of every chain as one stage.
 
 ``batched=False`` keeps the per-client loop as the numerics oracle. Both
 executors draw each (round, satellite) key from the same fold-in schedule
 as the JAX package and sample through the same bounded sampler, so they
 see identical batches; accounting is exactly equal between them.
 
+**Async: the compiled bounded-staleness buffer.** An update trained at
+round ``b`` transmits when its (sat, main) ISL window opens, arrives at a
+later round, and waits in its main's buffer until that main is primary
+again: merged if its staleness is within Δ_max, discarded otherwise. The
+batched executor keeps a device ring keyed (satellite, born mod Δ_max+1)
+and runs each round as one scatter into the ring, one secure stage over
+the plan's arrivals and one masked merge; the oracle keeps live per-main
+lists. Both merge through ONE reduction (``_frame_merge``) over the same
+(N+1)·(Δ_max+1) frame with the same (mains frame, cells) weight shape, so
+their merged parameters are bit-equal by construction.
+
+**Dropout-tolerant secure aggregation** (``agg_security='secagg'``, async
+only): senders quantize their updates to a mod-2^32 fixed-point stream
+and add signed pairwise pad streams keyed off BB84 shares; partners merged
+in the same batch cancel, and an absent partner's pads are cancelled
+exactly from the plan's correction tables (ring) or the key registry
+(oracle). Integer arithmetic, so both executors agree bit for bit.
+
 **Secure exchange (Algorithm 2).** Under ``security`` qkd / qkd_fernet
 every edge key is established in ONE batched BB84 when the plan compiles
 (the trainer's ``KeyManager`` rides along), and the plan's EdgeSchedule
-carries per-(round, edge) pad seeds, MAC keys, first-contact and abort
-masks. ``edge_batched=True`` (the default) runs each round stage as one
-secure dispatch over the stacked rows: the sender's XOR + MAC and the
-receiver's MAC + XOR are one launch each of the fused CUDA kernel
-(``kernels.otp_xor``), which generates the threefry pads itself from the
-stage's seeds and the tree's cached pad layout. ``edge_batched=False``
-keeps the per-edge oracle (``_exchange``), two launches of the kernel's
-seeded stream entry per delivered edge. Both give bit-identical payloads
-and exactly equal accounting; QBER aborts surface per edge
-(``SecurityError.edges``, ``fl.on_qber_abort`` raise or drop) and a MAC
-mismatch raises.
+carries per-(round, edge) pad seeds (folding in the round the payload was
+born, so a deferred async delivery never reuses a pad), MAC keys,
+first-contact and abort masks. ``edge_batched=True`` (the default) runs
+each round stage as one secure dispatch over the stacked rows: the
+sender's XOR + MAC and the receiver's MAC + XOR are one launch each of the
+fused CUDA kernel (``kernels.otp_xor``), which generates the threefry pads
+itself from the stage's seeds and the tree's cached pad layout.
+``edge_batched=False`` keeps the per-edge oracle (``_exchange``), two
+launches of the kernel's seeded stream entry per delivered edge. Both
+give bit-identical payloads and exactly equal accounting; QBER aborts
+surface per edge (``SecurityError.edges``, ``fl.on_qber_abort`` raise or
+drop) and a MAC mismatch raises.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than run
-weaker: modes seq/async and secagg (ROADMAP queue 1, item 7), fault
-injection and checkpoints (item 8), and a custom ``sample_batch`` (item
-13).
+weaker: fault injection and checkpoints (ROADMAP queue 1, item 8) and a
+custom ``sample_batch`` (item 13).
 """
 from __future__ import annotations
 
@@ -72,7 +96,9 @@ from repro_torch.security.fernet_lite import (
     fernet_encrypt, fernet_encrypt_rows,
 )
 from repro_torch.security.keys import KeyManager, canonical_edge
-from repro_torch.security.otp import (pad_layout, tree_to_u32,
+from repro_torch.security.otp import (pad_layout, q32_to_tree,
+                                      secagg_mask_rows, secagg_mask_stream,
+                                      sum_signed_pads, tree_to_u32,
                                       tree_to_u32_rows, u32_to_tree,
                                       u32_to_tree_rows)
 
@@ -106,6 +132,22 @@ def _jnp_mod(x: torch.Tensor, m: float) -> torch.Tensor:
 
 def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length() if n > 1 else 1
+
+
+def _frame_merge(frame, w: torch.Tensor):
+    """The async merge: (mp, nd) weights over a frame whose leaves are
+    (nd, ...) -> leaves (mp, ...), row g = Σ_k w[g, k]·frame[k] in float32,
+    as one elementwise product and one sum over k. The ring and the
+    per-main-list oracle both call it with the same shapes (a zero-weight
+    cell adds an exact zero), so their merges are bit-equal."""
+    mp, nd = w.shape
+
+    def one(x):
+        xf = x.reshape(nd, -1).to(torch.float32)
+        out = (w[:, :, None] * xf[None]).sum(dim=1)
+        return out.reshape((mp,) + tuple(x.shape[1:])).to(x.dtype)
+
+    return tree_map(one, frame)
 
 
 @dataclass
@@ -203,6 +245,14 @@ class SatQFLTrainer:
                                  eavesdrop_edges=eavesdrop_edges)
         self._qkd_established: set = set()
         self.aborted_edges: set = set()         # QBER aborts, per edge
+        # async oracle state: live per-main buffer lists and the deferred
+        # in-flight sends, keyed by their compiled delivery round
+        self.pending: dict[int, list] = {}  # main -> [(payload, sat, born)]
+        self._outbox: dict[int, list] = {}      # deliver_round -> sends
+        # test hook: with async_debug on, every (round, main) buffer merge
+        # is recorded as a host tree (the ring-vs-oracle check reads it)
+        self.async_debug = False
+        self.async_merge_log: list = []
         self._last_fidelity = None      # mean fidelity, last teleport edge
         # the edge-batched secure plane covers the OTP(+MAC) modes; the
         # per-edge loop stays as the numerics/accounting oracle
@@ -214,10 +264,44 @@ class SatQFLTrainer:
                                                        self.opt)
         # the whole schedule, with every edge key established in one
         # batched BB84 when the exchange is secured (teleport too: its
-        # exchanges abort on compromised edges like the OTP modes')
+        # exchanges abort on compromised edges like the OTP modes') or the
+        # aggregation is (secagg's pairwise mask shares)
         self.plan: RoundPlan = compile_round_plan(
             trace, fl, sample_counts=counts,
-            keymgr=self.keymgr if fl.security != "none" else None)
+            keymgr=(self.keymgr if (fl.security != "none"
+                                    or fl.agg_security == "secagg")
+                    else None))
+        if fl.mode == "async":
+            self._init_async()
+
+    def _init_async(self):
+        """Async state of the batched executor: the device ring, keyed
+        (satellite, born mod D) with row n_sats the scratch row for masked
+        writes, so group reshuffles never remap payloads; under secagg the
+        ring of masked mod-2^32 streams (int32 storage) instead."""
+        fl, st = self.fl, self.plan.stale
+        N, D = self.n_sats, st.D
+        es = self.plan.edges
+        arr_max = max((int(es.ptr[r, 1] - es.ptr[r, 0])
+                       for r in range(self.plan.n_rounds)), default=1)
+        self._async_exframe = _next_pow2(max(arr_max, 1))
+        if fl.agg_security != "secagg":
+            self._ring = tree_map(lambda x: x.new_zeros((N + 1, D)
+                                                        + tuple(x.shape)),
+                                  self.global_params)
+            return
+        leaves = tree_leaves(self.global_params)
+        # user-config validation must raise (asserts vanish under -O)
+        if not all(x.dtype == torch.float32 for x in leaves):
+            raise ValueError(
+                "agg_security='secagg' quantizes float32 parameters only; "
+                "this model has non-f32 leaves")
+        self._q_words = sum(x.numel() for x in leaves)
+        if 4 * self._q_words != self._row_nbytes:
+            raise ValueError("secagg wire stream size disagrees with the "
+                             "model's byte accounting")
+        self._ring_y = torch.zeros((N + 1, D, self._q_words),
+                                   dtype=torch.int32, device=self.device)
 
     # ------------------------------------------------------------------
     # local training
@@ -245,21 +329,26 @@ class SatQFLTrainer:
                         self.global_params)
 
     def _train_group_batched(self, sat_ids: list[int], params_stacked,
-                             r: int):
+                             r: int, update_opt=None,
+                             pad_to: int | None = None):
         """Train ``sat_ids`` as one stage over the stacked client axis.
 
         params_stacked: leaves (K or Kp, ...) — row j holds sat_ids[j]'s
         input model. Returns (params (Kp, ...), losses (Kp,)), padded to
-        the frame's Kp rows; pad rows repeat row 0 and leave every real
-        optimizer slot untouched.
+        ``pad_to`` rows (default: the frame); pad rows repeat row 0. Rows
+        where ``update_opt`` is False (seq's idle chains) and pad rows
+        leave every real optimizer slot untouched.
         """
         k = len(sat_ids)
-        kp = self._frame
+        kp = pad_to or self._frame
         dev = self.device
+        upd = ([True] * k if update_opt is None
+               else [bool(u) for u in update_opt])
         ids = torch.tensor(list(sat_ids) + [sat_ids[0]] * (kp - k),
                            device=dev)
-        scatter = torch.tensor(list(sat_ids) + [self.n_sats] * (kp - k),
-                               device=dev)
+        scatter = torch.tensor([s if u else self.n_sats
+                                for s, u in zip(sat_ids, upd)]
+                               + [self.n_sats] * (kp - k), device=dev)
         params = tree_map(
             lambda x: torch.cat([x, x[:1].expand((kp - x.shape[0],)
                                                  + x.shape[1:])])
@@ -270,7 +359,8 @@ class SatQFLTrainer:
         p, o, losses = self._batched_train(params, slots, data,
                                            self._n_samples[ids], keys,
                                            r * self.fl.local_steps)
-        # pad rows scatter into the scratch row; real ids are distinct
+        # masked and pad rows scatter into the scratch row; the real ids
+        # of a stage are distinct
         self._opt_stacked = tree_map(
             lambda full, new: full.index_copy(0, scatter, new),
             self._opt_stacked, o)
@@ -360,7 +450,11 @@ class SatQFLTrainer:
         """Teleport a sample of (θ, φ) angle pairs of the payload (the
         feasibility primitive): records the mean fidelity and returns the
         classical channel's time."""
-        flat = torch.cat([x.reshape(-1).to(torch.float32)
+        # an int32 leaf is a secagg wire stream: uint32 words in int32
+        # storage, read as the unsigned values they carry
+        flat = torch.cat([(x.to(torch.int64) & 0xFFFFFFFF
+                           if x.dtype == torch.int32 else x)
+                          .reshape(-1).to(torch.float32)
                           for x in tree_leaves(params)])
         n = min(self.fl.teleport_pairs, flat.shape[0] // 2)
         thetas = torch.clamp(_jnp_mod(torch.abs(flat[:n]), math.pi), 0.0,
@@ -426,7 +520,7 @@ class SatQFLTrainer:
         return u32_to_tree_rows(plain, stacked), ok
 
     def _exchange_rows_batched(self, stacked, rows, edges, r: int,
-                               stage: int, link: str, conc):
+                               stage: int, link: str, conc, borns=None):
         """Edge-batched Algorithm 2 for one round stage.
 
         Key material, first-contact and abort masks come from the compiled
@@ -448,8 +542,10 @@ class SatQFLTrainer:
             e = es.edge_tuple(r, lo + j)
             c = int(es.conc[r, lo + j])
             plan_link = "feeder" if es.link[r, lo + j] else "isl"
+            bn = int(es.born[r, lo + j])
             if (e != canonical_edge(edge) or c != conc[j]
-                    or plan_link != link or int(es.born[r, lo + j]) != r):
+                    or plan_link != link
+                    or bn != (borns[j] if borns is not None else r)):
                 raise RuntimeError(f"plan and engine disagree on edge {e} "
                                    f"of stage {(r, stage)}")
             t = 0.0
@@ -470,7 +566,7 @@ class SatQFLTrainer:
             if fl.security == "qkd_fernet":
                 # the token's length is structural, so the accounting stays
                 # in the loop; the hashlib work is one batched call below
-                meta = f"edge={e} round={r} n={nbytes}".encode()
+                meta = f"edge={e} round={bn} n={nbytes}".encode()
                 fern.append((e, int(es.seed[r, lo + j]), meta))
                 tc += 2 * self.comm.crypto_time(TOKEN_OVERHEAD + len(meta))
             self.log.add_security(tc)
@@ -512,16 +608,19 @@ class SatQFLTrainer:
         return out, walls, delivered
 
     def _exchange_rows(self, stacked, rows: list[int], edges: list[tuple],
-                       r: int, stage: int, link: str, concurrents=None):
+                       r: int, stage: int, link: str, concurrents=None,
+                       borns=None):
         """Algorithm-2 exchange over rows of a stacked (K, ...) tree.
 
-        ``rows[j]`` is the stacked row carrying ``edges[j]``'s payload.
-        Returns (stacked, walls, delivered): delivered[j] is False for a
-        QBER-dropped edge, whose row passes through untouched and which
-        the caller masks out of aggregation. security='none' never touches
-        the tensors (accounting only); the OTP(+MAC) modes run one
-        edge-batched stage (``edge_batched=True``) or the per-edge oracle
-        on row slices — identical bits, identical accounting.
+        ``rows[j]`` is the stacked row carrying ``edges[j]``'s payload and
+        ``borns[j]`` (default: this round) the round it was trained: async
+        deferred deliveries key their pad seeds off it. Returns (stacked,
+        walls, delivered): delivered[j] is False for a QBER-dropped edge,
+        whose row passes through untouched and which the caller masks out
+        of aggregation. security='none' never touches the tensors
+        (accounting only); the OTP(+MAC) modes run one edge-batched stage
+        (``edge_batched=True``) or the per-edge oracle on row slices —
+        identical bits, identical accounting.
         """
         k = len(edges)
         conc = concurrents or [1] * k
@@ -533,11 +632,13 @@ class SatQFLTrainer:
             return stacked, walls, [True] * k
         if self.edge_batched:
             return self._exchange_rows_batched(stacked, rows, edges, r,
-                                               stage, link, conc)
+                                               stage, link, conc, borns)
         out_rows, walls, delivered = [], [], []
         for j, (edge, c) in enumerate(zip(edges, conc)):
             p_j = tree_map(lambda x: x[rows[j]], stacked)
-            p_j, t = self._exchange(p_j, edge, r, link, c)
+            p_j, t = self._exchange(p_j, edge,
+                                    borns[j] if borns is not None else r,
+                                    link, c)
             delivered.append(p_j is not None)
             out_rows.append(p_j)
             walls.append(t)
@@ -557,6 +658,13 @@ class SatQFLTrainer:
     def _weight_of(self, s: int) -> float:
         return float(self.plan.weights[s])
 
+    def _strag_extra(self, r: int, s: int) -> float:
+        """Straggler wall-clock penalty of sender ``s`` at round ``r``,
+        added wherever that sender's transfer wall (or async transmit wait)
+        is recorded. The one place the fault plane (ROADMAP queue 1, item
+        8) plugs into the trainer's accounting; without it, 0."""
+        return 0.0
+
     def _aggregate(self, models: list, ws: list):
         """FedAvg: normalized weighted sum; ws parallel to models."""
         wsum = sum(ws)
@@ -571,8 +679,26 @@ class SatQFLTrainer:
                                       dims=([0], [0])).to(x.dtype), stacked)
 
     # ------------------------------------------------------------------
-    # sim group merge: per-client oracle and batched executor
+    # per-mode group merges (per-client oracle): each merges one
+    # {main: secs} group and returns
+    # (merged_params, group_wall_s, group_wait_s, delivered_count)
     # ------------------------------------------------------------------
+    def _merge_seq(self, r: int, main: int, secs: list):
+        # the chain is SERIAL: wall = sum of hop transfers
+        theta = self.global_params
+        chain_wall = 0.0
+        delivered = 0
+        for s in secs:
+            prev = theta
+            theta, _ = self._train_sat(s, theta, r)
+            theta, t = self._exchange(theta, (s, main), r, "isl")
+            chain_wall += t + self._strag_extra(r, s)
+            if theta is None:
+                theta = prev    # hop QBER-aborted: the chain reverts
+            else:
+                delivered += 1
+        return theta, chain_wall, 0.0, delivered
+
     def _merge_sim(self, r: int, main: int, secs: list):
         # parallel uploads CONTEND for the main's ISL aperture
         # (bandwidth / n_concurrent): wall = max over secs
@@ -581,7 +707,7 @@ class SatQFLTrainer:
             p, _ = self._train_sat(s, self.global_params, r)
             p, t = self._exchange(p, (s, main), r, "isl",
                                   concurrent=max(len(secs), 1))
-            up_walls.append(t)
+            up_walls.append(t + self._strag_extra(r, s))
             if p is None:
                 continue            # QBER abort: the update is dropped
             collected.append(p)
@@ -590,6 +716,127 @@ class SatQFLTrainer:
                   else self.global_params)
         return merged, max(up_walls), 0.0, len(collected)
 
+    def _secagg_merge_oracle(self, m: int, fresh: list):
+        """Unmask and dequantize one main's secagg merge batch.
+
+        ``fresh``: [(payload, sat, born)] in (sat, born) order. Masks of
+        partners inside the batch cancel; every absent cohort partner's
+        signed pads are recovered from the key registry and cancelled
+        exactly (mod 2^32)."""
+        st = self.plan.stale
+        agg = torch.stack([p["y"] for p, _, _ in fresh]).to(
+            torch.int64).sum(dim=0)
+        inset = {(s, b) for _, s, b in fresh}
+        pairs, borns, signs = [], [], []
+        for _, s, b in fresh:
+            # the cohort is the born round's live group: the compiled
+            # pairwise-mask schedule was dealt over it
+            for s2 in self.plan.live_groups(b)[m]:
+                if s2 == s or (s2, b) in inset:
+                    continue            # partner merges here: masks cancel
+                pairs.append(canonical_edge((s, s2)))
+                borns.append(b)
+                signs.append(-(1 if s < s2 else -1))
+        agg = agg + self.keymgr.recover_masks(pairs, borns, signs,
+                                              self._q_words).to(torch.int64)
+        sumw = sum(int(st.wq[s]) for _, s, _ in fresh)
+        return q32_to_tree(as_storage(agg), self.global_params, float(sumw))
+
+    def _list_merge(self, g: int, fresh: list):
+        """Main ``g``'s merge of its buffer list ``fresh`` [(payload, sat,
+        born)] in (sat, born) order: the ring's frame holding only these
+        entries, the ring's weight shape with only row g set, and the
+        ring's own reduction (``_frame_merge``), so the result equals the
+        ring's merge of the same entries bit for bit."""
+        D = self.plan.stale.D
+        mp, nd = self._frame, (self.n_sats + 1) * D
+        ws = [float(self.plan.weights[s]) for _, s, _ in fresh]
+        wsum = sum(ws)
+        w = np.zeros((mp, nd), np.float32)
+        pos = []
+        for (_, s, b), wt in zip(fresh, ws):
+            pos.append(s * D + b % D)
+            w[g, pos[-1]] = np.float32(wt / wsum)
+        idx = torch.tensor(pos, device=self.device)
+        frame = tree_map(
+            lambda *xs: xs[0].new_zeros((nd,) + tuple(xs[0].shape))
+            .index_copy(0, idx, torch.stack(xs)),
+            *[p for p, _, _ in fresh])
+        merged = _frame_merge(frame, torch.from_numpy(w).to(self.device))
+        return tree_map(lambda x: x[g], merged)
+
+    def _async_oracle_prepare(self, r: int):
+        """Async, per-main-list oracle: one round's buffer mechanics.
+
+        Phase 1 trains every grouped secondary and schedules its send at
+        the compiled delivery round (``plan.stale.deliver_round``); phase 2
+        drains this round's arrivals — per-edge Algorithm 2, pad seeds
+        keyed by the BORN round — into the live per-main lists; phase 3
+        lets each current main merge its fresh entries (staleness filter,
+        then ``_frame_merge`` over the ring's frame, so the merged
+        parameters equal the ring's bit for bit) and discard the rest.
+        Window waits are recorded per trained secondary as min(wait,
+        comm.window_wait_s): a windowless satellite clamps to the cap.
+        """
+        fl, st, cap = self.fl, self.plan.stale, self.comm.window_wait_s
+        groups = self.plan.live_groups(r)
+        mains = list(groups)
+        state = {"merged": {}, "walls": {}, "waits": {}, "delivered": {}}
+        secagg = fl.agg_security == "secagg"
+        for m, secs in groups.items():
+            gw = 0.0
+            for s in secs:
+                p, _ = self._train_sat(s, self.global_params, r)
+                gw = max(gw, min(float(st.tx_wait_s[r, s]), cap)
+                         + self._strag_extra(r, s))
+                rd = int(st.deliver_round[r, s])
+                if rd < 0:
+                    continue    # windowless / stale on arrival / horizon
+                if secagg:
+                    p = {"y": secagg_mask_stream(p, int(st.wq[s]),
+                                                 st.pair_seed[r, s],
+                                                 st.pair_sign[r, s])}
+                self._outbox.setdefault(rd, []).append((s, m, r, p))
+            state["waits"][m] = gw
+        for (s, m, b, payload) in self._outbox.pop(r, []):
+            p2, t = self._exchange(payload, (s, m), b, "isl")
+            # an arrival whose destination lost primary status still costs
+            # its transfer: fold it into the round wall via the first group
+            key = m if m in groups else mains[0]
+            state["walls"][key] = max(state["walls"].get(key, 0.0), t)
+            if p2 is None:
+                continue                    # QBER abort: update dropped
+            self.pending.setdefault(m, []).append((p2, s, b))
+        for g, m in enumerate(mains):
+            q = self.pending.get(m, [])
+            fresh = sorted([e for e in q if r - e[2] <= fl.max_staleness],
+                           key=lambda e: (e[1], e[2]))
+            self.pending[m] = []            # merged or stale-discarded
+            state["delivered"][m] = len(fresh)
+            if not fresh:
+                state["merged"][m] = self.global_params
+            elif secagg:
+                state["merged"][m] = self._secagg_merge_oracle(m, fresh)
+            else:
+                state["merged"][m] = self._list_merge(g, fresh)
+        self._async_state = state
+
+    def _merge_async(self, r: int, main: int, secs: list):
+        stt = self._async_state
+        if self.async_debug:
+            self.async_merge_log.append(
+                (r, main, tree_map(lambda x: x.detach().cpu().clone(),
+                                   stt["merged"][main])))
+        return (stt["merged"][main], stt["walls"].get(main, 0.0),
+                stt["waits"][main], stt["delivered"][main])
+
+    _GROUP_SCHEDULERS = {"seq": _merge_seq, "sim": _merge_sim,
+                         "async": _merge_async}
+
+    # ------------------------------------------------------------------
+    # per-mode group merges (batched executor): each returns
+    # (merged_stacked (mp, ...), group_walls, group_waits, delivered)
+    # ------------------------------------------------------------------
     def _merge_sim_batched(self, r: int, mains: list, groups: dict, mp: int):
         secs_all = [s for m in mains for s in groups[m]]
         group_walls = [0.0] * len(mains)
@@ -610,7 +857,8 @@ class SatQFLTrainer:
             for s in groups[m]:
                 if delivered[j]:
                     a[g, j] = self._weight_of(s)
-                group_walls[g] = max(group_walls[g], walls[j])
+                group_walls[g] = max(group_walls[g],
+                                     walls[j] + self._strag_extra(r, s))
                 j += 1
         row_sum = a.sum(axis=1, keepdims=True)
         an = torch.as_tensor(a / np.where(row_sum > 0, row_sum, 1.0),
@@ -625,6 +873,203 @@ class SatQFLTrainer:
         merged = tree_map(_merge, p, self._broadcast_global(mp))
         return merged, group_walls, [0.0], int(sum(delivered))
 
+    def _merge_seq_batched(self, r: int, mains: list, groups: dict, mp: int):
+        # chains are serial WITHIN a group but parallel ACROSS groups: hop
+        # h trains the h-th secondary of every chain as one stage
+        chains = [groups[m] for m in mains]
+        n_chains = len(mains)
+        theta = self._broadcast_global(mp)
+        chain_walls = [0.0] * n_chains
+        delivered = 0
+        for hop in range(max((len(c) for c in chains), default=0)):
+            active = [len(c) > hop for c in chains]
+            ids = [c[hop] if len(c) > hop else mains[g]
+                   for g, c in enumerate(chains)]
+            theta_prev = theta
+            p_new, _ = self._train_group_batched(ids, theta, r,
+                                                 update_opt=active, pad_to=mp)
+            mask = torch.as_tensor(active + [False] * (mp - n_chains),
+                                   device=self.device)
+            theta = tree_map(
+                lambda new, old: torch.where(
+                    mask.reshape((-1,) + (1,) * (new.dim() - 1)), new, old),
+                p_new, theta)
+            act_rows = [g for g in range(n_chains) if active[g]]
+            if self.fl.security == "none":
+                dropped = []
+                for g in act_rows:
+                    chain_walls[g] += self._strag_extra(r, chains[g][hop])
+                    chain_walls[g] += self.comm.isl_transfer(self._row_nbytes)
+                    self.log.count_transfer(self._row_nbytes)
+                    delivered += 1
+            else:
+                edges = [(chains[g][hop], mains[g]) for g in act_rows]
+                theta, walls, ok = self._exchange_rows(theta, act_rows,
+                                                       edges, r, hop, "isl")
+                for t, g in zip(walls, act_rows):
+                    chain_walls[g] += t + self._strag_extra(r,
+                                                            chains[g][hop])
+                dropped = [g for g, d in zip(act_rows, ok) if not d]
+                delivered += int(sum(ok))
+            if dropped:
+                # a QBER-aborted hop never reached the next hop: those
+                # chains revert to their pre-hop state
+                idx = torch.tensor(dropped, device=self.device)
+                theta = tree_map(
+                    lambda full, old: full.index_copy(0, idx, old[idx]),
+                    theta, theta_prev)
+        return theta, chain_walls, [0.0], delivered
+
+    # ------------------------------------------------------------------
+    # async ring (batched executor)
+    # ------------------------------------------------------------------
+    def _async_merge(self, mw: torch.Tensor, anyv: torch.Tensor):
+        """The whole async merge over the ring: mw (mp, N+1, D) holds the
+        plan's normalized weights (0 = cell not in this round's merge);
+        mains without an entry (anyv False) keep the global model."""
+        mp = mw.shape[0]
+        frame = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])),
+                         self._ring)
+        merged = _frame_merge(frame, mw.reshape(mp, -1))
+
+        def keep(m, g):
+            k = anyv.reshape((-1,) + (1,) * (m.dim() - 1))
+            return torch.where(k, m, g[None].to(m.dtype))
+
+        return tree_map(keep, merged, self.global_params)
+
+    def _async_merge_y(self, sel, corr_seed, corr_sign, sumw, anyv):
+        """The secagg merge: every main's masked mod-2^32 sum over the ring
+        plus the plan's signed correction streams (absent partners' pads
+        cancelled; one pad call for all mains), then dequantized."""
+        mp = sel.shape[0]
+        yf = self._ring_y.reshape(-1, self._q_words).to(torch.int64)
+        agg = (sel.reshape(mp, -1, 1) * yf[None]).sum(dim=1)
+        corr = sum_signed_pads(corr_seed, corr_sign, self._q_words)
+        merged = q32_to_tree(as_storage(agg + corr.to(torch.int64)),
+                             self.global_params, sumw)
+
+        def keep(m, g):
+            k = anyv.reshape((-1,) + (1,) * (m.dim() - 1))
+            return torch.where(k, m, g[None]).to(g.dtype)
+
+        return tree_map(keep, merged, self.global_params)
+
+    def _merge_async_batched(self, r: int, mains: list, groups: dict,
+                             mp: int):
+        """Async round: train (one stage), scatter into the ring, exchange
+        the plan's compiled arrivals (one secure stage) and merge every
+        main's buffer (one reduction) — no per-main lists."""
+        fl, st = self.fl, self.plan.stale
+        cap = self.comm.window_wait_s
+        secagg = fl.agg_security == "secagg"
+        N, D = self.n_sats, st.D
+        dev = self.device
+        if [int(x) for x in st.main_ids[r] if x >= 0] != mains:
+            raise RuntimeError(f"plan and engine disagree on the mains of "
+                               f"round {r}")
+        group_walls = [0.0] * len(mains)
+        group_waits = [0.0] * len(mains)
+        secs_all = [s for m in mains for s in groups[m]]
+        if secs_all:
+            p, _ = self._train_group_batched(
+                secs_all, self._broadcast_global(self._frame), r)
+            for g, m in enumerate(mains):
+                for s in groups[m]:
+                    group_waits[g] = max(
+                        group_waits[g],
+                        min(float(st.tx_wait_s[r, s]), cap)
+                        + self._strag_extra(r, s))
+            sats = np.full((self._frame,), N, np.int64)
+            slots = np.zeros((self._frame,), np.int64)
+            for j, s in enumerate(secs_all):
+                if st.send_slot[r, s] >= 0:
+                    sats[j], slots[j] = s, st.send_slot[r, s]
+            cell = (torch.from_numpy(sats).to(dev),
+                    torch.from_numpy(slots).to(dev))
+            if secagg:
+                wq = np.ones((self._frame,), np.int64)
+                seeds = np.zeros((self._frame,) + st.pair_seed.shape[2:],
+                                 np.int64)
+                signs = np.zeros((self._frame,) + st.pair_sign.shape[2:],
+                                 np.int64)
+                for j, s in enumerate(secs_all):
+                    wq[j] = st.wq[s]
+                    seeds[j] = st.pair_seed[r, s]
+                    signs[j] = st.pair_sign[r, s]
+                # every row's quantize + mask in one pass, pads of all
+                # (row, partner) seeds in one threefry call
+                self._ring_y.index_put_(cell, secagg_mask_rows(
+                    p, torch.from_numpy(wq).to(dev),
+                    torch.from_numpy(seeds).to(dev),
+                    torch.from_numpy(signs).to(dev)))
+            else:
+                tree_map(lambda full, x: full.index_put_(cell, x),
+                         self._ring, p)
+        # arrivals: updates whose window has opened by this round (the
+        # plan's stage-0 edge list IS the delivery schedule)
+        es = self.plan.edges
+        lo, hi = es.stage_bounds(r, 0)
+        arr = [(int(es.src[r, j]), int(es.dst[r, j]), int(es.born[r, j]))
+               for j in range(lo, hi)]
+        if arr:
+            gathered = None
+            if fl.security != "none":
+                gi = np.full((self._async_exframe,), N, np.int64)
+                gd = np.zeros((self._async_exframe,), np.int64)
+                for k, (s, _m, b) in enumerate(arr):
+                    gi[k], gd[k] = s, b % D
+                gi = torch.from_numpy(gi).to(dev)
+                gd = torch.from_numpy(gd).to(dev)
+                gathered = ({"y": self._ring_y[gi, gd]} if secagg else
+                            tree_map(lambda x: x[gi, gd], self._ring))
+            _, walls, _ = self._exchange_rows(
+                gathered, list(range(len(arr))), [(s, m) for s, m, _ in arr],
+                r, 0, "isl", borns=[b for _, _, b in arr])
+            widx = {m: g for g, m in enumerate(mains)}
+            for t, (s, m, b) in zip(walls, arr):
+                g = widx.get(m, 0)
+                group_walls[g] = max(group_walls[g], t)
+        merged = self._ring_merge(r)
+        if self.async_debug:
+            for g, m in enumerate(mains):
+                self.async_merge_log.append(
+                    (r, m, tree_map(lambda x: x[g].detach().cpu().clone(),
+                                    merged)))
+        return (merged, group_walls, group_waits,
+                int(st.merge_count[r].sum()))
+
+    def _ring_merge(self, r: int):
+        """Round r's merge of every main's buffer straight from the ring
+        (rows (frame, ...), row g = the g-th main): each main's queue
+        append, staleness filter and weights are already baked into the
+        plan's masks."""
+        fl, st = self.fl, self.plan.stale
+        N, D, G, mp = self.n_sats, st.D, st.n_mains_max, self._frame
+        dev = self.device
+        anyv = np.zeros((mp,), bool)
+        anyv[:G] = st.merge_any[r]
+        anyv = torch.from_numpy(anyv).to(dev)
+        if fl.agg_security != "secagg":
+            mw = np.zeros((mp, N + 1, D), np.float32)
+            mw[:G] = st.merge_w[r]
+            return self._async_merge(torch.from_numpy(mw).to(dev), anyv)
+        sel = np.zeros((mp, N + 1, D), np.int64)
+        sel[:G] = st.merge_w[r] > 0
+        cs = np.zeros((mp,) + st.corr_seed.shape[2:], np.int64)
+        cg = np.zeros((mp,) + st.corr_sign.shape[2:], np.int64)
+        cs[:G] = st.corr_seed[r]
+        cg[:G] = st.corr_sign[r]
+        sw = np.zeros((mp,), np.float32)
+        sw[:G] = st.sum_wq[r]
+        return self._async_merge_y(
+            torch.from_numpy(sel).to(dev), torch.from_numpy(cs).to(dev),
+            torch.from_numpy(cg).to(dev), torch.from_numpy(sw).to(dev), anyv)
+
+    _BATCHED_SCHEDULERS = {"seq": _merge_seq_batched,
+                           "sim": _merge_sim_batched,
+                           "async": _merge_async_batched}
+
     # ------------------------------------------------------------------
     # round schedulers
     # ------------------------------------------------------------------
@@ -638,6 +1083,7 @@ class SatQFLTrainer:
             p, walls, delivered = self._exchange_rows(
                 p, list(range(len(ids))), [("gs", s) for s in ids], r, 0,
                 "feeder")
+            walls = [t + self._strag_extra(r, s) for t, s in zip(walls, ids)]
             self.log.add_wall(2 * max([0.0] + walls))
             w = np.zeros((self._frame,), np.float32)
             for j, s in enumerate(ids):
@@ -650,7 +1096,7 @@ class SatQFLTrainer:
         for s in ids:
             p, _ = self._train_sat(s, self.global_params, r)
             p, t = self._exchange(p, ("gs", s), r, "feeder")
-            walls.append(t)
+            walls.append(t + self._strag_extra(r, s))
             if p is None:
                 continue            # QBER abort: the update is dropped
             updates.append(p)
@@ -661,24 +1107,30 @@ class SatQFLTrainer:
         return len(updates)
 
     def _round_hierarchical(self, r: int) -> int:
-        """Algorithm 1 proper (per-client oracle): per-group sim merge,
+        """Algorithm 1 proper (per-client oracle): the mode's group merge,
         main-satellite training, feeder uplink, global FedAvg through the
         same frame-padded weighted reduction as the batched executor."""
+        fl = self.fl
+        merge_group = self._GROUP_SCHEDULERS[fl.mode]
+        if fl.mode == "async":
+            # cross-group phases (training, deferred arrivals, buffer
+            # appends) run once per round; each group then reads its merge
+            self._async_oracle_prepare(r)
         mp = self._frame
         main_ws = np.zeros((mp,), np.float32)
         main_models = [None] * mp
         group_walls, feeder_walls, group_waits = [0.0], [0.0], [0.0]
         participants = 0
-        for g, (main, secs) in enumerate(self.plan.groups(r).items()):
-            merged, wall, wait, delivered = self._merge_sim(r, main, secs)
+        for g, (main, secs) in enumerate(self.plan.live_groups(r).items()):
+            merged, wall, wait, delivered = merge_group(self, r, main, secs)
             group_walls.append(wall)
             group_waits.append(wait)
             participants += delivered
-            if self.fl.main_trains:
+            if fl.main_trains:
                 merged, _ = self._train_sat(main, merged, r)
                 participants += 1
             merged, t = self._exchange(merged, (main, "gs"), r, "feeder")
-            feeder_walls.append(t)
+            feeder_walls.append(t + self._strag_extra(r, main))
             if merged is None:
                 continue        # feeder QBER abort: the group is lost
             main_models[g] = merged
@@ -691,16 +1143,18 @@ class SatQFLTrainer:
                 *[m if m is not None else zeros for m in main_models])
             self.global_params = self._wmean_rows(stacked, main_ws)
         # groups run in parallel: the round blocks on the slowest group,
-        # then the slowest feeder uplink, plus the broadcast back down
+        # then the slowest feeder uplink, plus the broadcast back down;
+        # window waits overlap the same way (recorded once, the slowest)
         self.log.add_wait(max(group_waits))
         self.log.add_wall(max(group_walls) + 2 * max(feeder_walls))
         return participants
 
     def _round_hierarchical_batched(self, r: int) -> int:
         """The same Algorithm-1 round with local training dispatched once
-        per stage over the stacked client axis: secondaries, then mains,
-        then one weighted reduction for the global model."""
-        groups = self.plan.groups(r)
+        per stage over the stacked client axis: secondaries (the mode's
+        merge), then mains, then one weighted reduction for the global
+        model."""
+        groups = self.plan.live_groups(r)
         mains = list(groups)
         if not mains:
             self.log.add_wait(0.0)
@@ -708,14 +1162,16 @@ class SatQFLTrainer:
             return 0
         mp = self._frame
         merged, group_walls, group_waits, participants = \
-            self._merge_sim_batched(r, mains, groups, mp)
+            self._BATCHED_SCHEDULERS[self.fl.mode](self, r, mains, groups, mp)
         if self.fl.main_trains:
-            merged, _ = self._train_group_batched(mains, merged, r)
+            merged, _ = self._train_group_batched(mains, merged, r, pad_to=mp)
             participants += len(mains)
         feeder_stage = int(self.plan.edges.n_stages[r]) - 1
         merged, feeder_walls, fdel = self._exchange_rows(
             merged, list(range(len(mains))), [(m, "gs") for m in mains], r,
             feeder_stage, "feeder")
+        feeder_walls = [t + self._strag_extra(r, m)
+                        for t, m in zip(feeder_walls, mains)]
         # pad rows carry zero weight, so the padded reduction is exact;
         # feeder-aborted mains contribute nothing (their group is lost)
         main_ws = np.zeros((mp,), np.float32)
@@ -744,10 +1200,12 @@ class SatQFLTrainer:
         sec_t0 = self.log.security_s
         if fl.mode == "qfl":
             m.participants = self._round_qfl(r)
-        elif self.batched:
-            m.participants = self._round_hierarchical_batched(r)
+        elif fl.mode in self._GROUP_SCHEDULERS:
+            m.participants = (self._round_hierarchical_batched(r)
+                              if self.batched
+                              else self._round_hierarchical(r))
         else:
-            m.participants = self._round_hierarchical(r)
+            raise ValueError(fl.mode)
         m.comm_s = self.log.total_s - round_t0
         m.security_s = self.log.security_s - sec_t0
         self.log.close_round()

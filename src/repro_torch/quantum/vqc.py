@@ -16,7 +16,13 @@ complex simulator, kept as the numerics oracle.
 Params may carry a leading client axis: theta/phi (K, L, nq) and
 w_out/b_out (K, C) with features (K, B, F) give logits (K, B, C) and one
 loss per client — the batched trainers' form. Without the client axis
-the shapes and results are those of the JAX package.
+the shapes and results are those of the JAX package. Every contraction
+over a client's data is computed client by client (a batched matmul
+over the client axis, or a product summed over the last axis), never
+with the client axis folded into GEMM rows: on the CPU a client's result
+is then the same bits whether its call stacks 1 client or 64, so the
+trainer's two executors train identically (the async ring's check
+against its per-main-list oracle is bit for bit).
 
 Gradients: exact autodiff through the fused path, or the paper-faithful
 ±π/2 parameter-shift rule (``parameter_shift_grad``, what Qiskit's QNN
@@ -111,8 +117,9 @@ def _circuit_planes_fused(cfg: ArchConfig, params, features):
 def _readout(cfg: ArchConfig, planes):
     """⟨Z_0..Z_{C-1}⟩ of planes (..., 2^nq) -> (..., C)."""
     re, im = planes
-    return (re * re + im * im) @ sv.zexp_signs(cfg.vqc_qubits, cfg.n_classes,
-                                               re.device).T
+    pr = re * re + im * im
+    zt = sv.zexp_signs(cfg.vqc_qubits, cfg.n_classes, re.device).T
+    return torch.matmul(pr, zt.expand(pr.shape[:-2] + zt.shape))
 
 
 def _logits_fused(cfg: ArchConfig, params, features):
@@ -251,7 +258,8 @@ def _shift_grads(cfg: ArchConfig, params, batch, chunk: int):
     dL = (p - torch.nn.functional.one_hot(labels, C)) / B
     # chained diagonal observable: Σ_shift dL·logits needs only
     # Σ_{b,i} |ψ|²[b,i] · M[b,i] per branch (b_out cancels in the ± diff)
-    M = torch.einsum("kbc,ci->kbi", dL * w, sv.zexp_signs(nq, C, dev))
+    Z = sv.zexp_signs(nq, C, dev)
+    M = torch.bmm(dL * w, Z.expand((K,) + Z.shape))
 
     ry_pm = _pm_gates(sv.ry_gate, K, dev)
     rz_pm = _pm_gates(sv.rz_gate, K, dev)
@@ -271,7 +279,8 @@ def _shift_grads(cfg: ArchConfig, params, batch, chunk: int):
             for l in range(l0, L):
                 st = _ansatz_layer(st, gates[:, l], ring)
             pr = (st[0] * st[0] + st[1] * st[1]).reshape(K, -1, B, dim)
-            vals.append(torch.einsum("kjbi,kbi->kj", pr, M))
+            vals.append((pr.reshape(K, pr.shape[1], -1)
+                         * M.reshape(K, 1, -1)).sum(dim=-1))
         return torch.cat(vals, dim=1).reshape(K, 2, nq)
 
     g_theta, g_phi = [], []

@@ -17,8 +17,9 @@ the JAX package. An edge with a ``"gs"`` endpoint hashes a ``str``, which
 Python salts per process: keys agree with the JAX package's only within
 one process (or under one ``PYTHONHASHSEED``).
 
-``share_edges`` and ``recover_masks`` (secagg) come with ROADMAP queue 1,
-item 7.
+For secagg, ``share_edges`` deals the pairwise mask shares of a cohort
+(rooted in the pairs' BB84 keys) and ``recover_masks`` rebuilds the signed
+pad streams of absent partners, exactly (mod 2^32).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch
 from repro_torch import prng
 from repro_torch.quantum.qkd import (bb84_keygen, bb84_keygen_edges,
                                      derive_pad_seed, derive_pad_seeds)
+from repro_torch.security.otp import sum_signed_pads
 
 QBER_ABORT = 0.11   # standard BB84 abort threshold
 
@@ -135,6 +137,32 @@ class KeyManager:
 
     def get(self, edge: tuple) -> EdgeKey:
         return self.establish(edge)
+
+    # ------------------------------------------------------------------
+    # secagg pairwise mask shares (dropout-tolerant aggregation)
+    # ------------------------------------------------------------------
+    def share_edges(self, pairs) -> dict:
+        """Deal pairwise secagg mask shares for a cohort's satellite pairs:
+        {canonical pair: base edge seed}, every pair's share rooted in its
+        BB84 key, all established in one batched BB84. Per-(pair, born)
+        mask seeds come from :func:`pairwise_mask_seed`."""
+        return {ek.edge: int(ek.seed)
+                for ek in self.establish_edges(list(pairs))}
+
+    def recover_masks(self, pairs, borns, signs,
+                      n_words: int) -> torch.Tensor:
+        """Σ sign · mask-pad over absent cohort partners: the streams their
+        surviving partners folded into their contributions, re-derived from
+        the registry. Returns (n_words,) int32 storage (mod 2^32, exact) on
+        the master key's device."""
+        dev = self.master_key.device
+        if not pairs:
+            return torch.zeros((n_words,), dtype=torch.int32, device=dev)
+        eks = self.establish_edges(list(pairs))
+        seeds = np.asarray([pairwise_mask_seed(ek.seed, b)
+                            for ek, b in zip(eks, borns)], np.uint32)
+        return sum_signed_pads(seeds, np.asarray(signs, np.int32), n_words,
+                               device=dev)
 
     def compromised_nodes(self) -> set:
         out = set()

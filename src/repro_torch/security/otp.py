@@ -19,18 +19,22 @@ so ``tree_to_u32(encrypt_tree(t, s)) == tree_to_u32(t) ^ tree_pad_u32(t, s)``
 word, elements, width): from it and a seed the kernel's seeded entries
 generate the pads themselves, which is what the trainer runs.
 
-The secagg half of the JAX module (``tree_to_q32`` … ``secagg_mask_stream``)
-comes with ROADMAP queue 1, item 7.
+The secagg half (``tree_to_q32`` … ``secagg_mask_stream``) carries the
+mod-2^32 fixed-point streams of dropout-tolerant secure aggregation as
+int32 bit storage (the OTP kernel's convention): arithmetic runs on int64
+words reduced mod 2^32, and a stream is bit-viewed as uint32 only at the
+wire.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch import prng
 from repro_torch.device import resolve_device
-from repro_torch.nn.pytree import tree_leaves
+from repro_torch.nn.pytree import tree_leaves, tree_map
 
 _M32 = 0xFFFFFFFF
 
@@ -281,3 +285,128 @@ def layout_rows(layout: torch.Tensor) -> tuple:
     if kept is not None and kept[0] is layout:
         return kept[1]
     return tuple(tuple(r) for r in layout.tolist())
+
+
+# ---------------------------------------------------------------------------
+# secagg fixed-point domain (dropout-tolerant secure aggregation)
+#
+# Pairwise masks must cancel under the aggregation SUM, which XOR pads
+# cannot do, so secagg contributions live in a mod-2^32 fixed-point domain:
+# parameters quantize to int32 with SECAGG_FRAC_BITS fractional bits
+# (clipped to ±SECAGG_CLIP, |x| ≤ 16), scale by a small integer FedAvg
+# weight, and add signed threefry pad streams. Wraparound arithmetic is
+# exact and associative, so every execution order gives the same bits, and
+# an absent partner's pads cancel EXACTLY by adding the mirrored signed
+# streams (``sum_signed_pads``).
+#
+# Overflow budget: |w·q| ≤ SECAGG_W_MAX · SECAGG_CLIP < 2^23, so up to 2^7
+# summed entries stay below 2^31 and the aggregate reads back as a faithful
+# int32.
+# ---------------------------------------------------------------------------
+
+SECAGG_FRAC_BITS = 16                 # fixed-point scale 2^16 (~1.5e-5 step)
+SECAGG_CLIP = 1 << 20                 # quantized magnitude cap (|x| ≤ 16.0)
+SECAGG_W_MAX = 7                      # integer FedAvg weight cap
+
+
+def _storage(words: torch.Tensor) -> torch.Tensor:
+    """int64 words -> the int32 bit storage of their low 32 bits."""
+    words = words & _M32
+    return (words - ((words >> 31) << 32)).to(torch.int32)
+
+
+def _int64(x, device=None) -> torch.Tensor:
+    """An int64 tensor of ``x``: a tensor stays on its device, numpy or a
+    list goes to ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64)
+    return torch.as_tensor(np.asarray(x, np.int64),
+                           device=resolve_device(device))
+
+
+def _q32(leaves: list, lead: int) -> torch.Tensor:
+    """Quantized leaves, flattened past ``lead`` dims and concatenated."""
+    out = []
+    for leaf in leaves:
+        if leaf.dtype != torch.float32:
+            raise TypeError("secagg quantization is defined for float32 "
+                            f"leaves only, got {leaf.dtype}")
+        q = torch.clamp(torch.round(leaf * float(1 << SECAGG_FRAC_BITS)),
+                        -SECAGG_CLIP, SECAGG_CLIP)      # half to even
+        out.append(q.to(torch.int32).reshape(tuple(leaf.shape[:lead])
+                                             + (-1,)))
+    return torch.cat(out, dim=-1)
+
+
+def tree_to_q32(tree) -> torch.Tensor:
+    """Quantize a float32 tree to a flat (n,) int32 fixed-point stream."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return torch.zeros((0,), dtype=torch.int32)
+    return _q32(leaves, 0)
+
+
+def q32_to_tree(vec: torch.Tensor, like, denom):
+    """Dequantize an aggregated mod-2^32 stream (int32 storage) into
+    ``like``'s tree, divided by ``denom`` (the aggregate's integer-weight
+    sum). Leading batch dims of ``vec`` (and of ``denom``) broadcast
+    through: rows dequantize independently."""
+    if vec.dtype != torch.int32:
+        vec = _storage(vec)
+    q = vec.to(torch.float32)
+    scale = torch.clamp(torch.as_tensor(denom, dtype=torch.float32,
+                                        device=vec.device), min=1.0)
+    x = q / (scale * float(1 << SECAGG_FRAC_BITS))[..., None]
+    batch = tuple(vec.shape[:-1])
+    out, off = [], 0
+    for leaf in tree_leaves(like):
+        n = math.prod(leaf.shape)
+        out.append(x[..., off:off + n].reshape(batch + tuple(leaf.shape)))
+        off += n
+    return _unflatten(like, out)
+
+
+def sum_signed_pads(seeds_u32, signs, n: int, device=None) -> torch.Tensor:
+    """Σ_p sign_p · pad(seed_p, n) mod 2^32 — the pairwise-mask stream.
+
+    seeds (..., P) uint32 values (a tensor, on whose device the pads are
+    made, or numpy on ``device``), signs (..., P) (+1 add, −1 subtract, 0
+    skip) -> (..., n) int32 storage. Every (row, partner) seed expands in
+    ONE threefry call; the modular sum is exact, so its order cannot
+    change a bit."""
+    seeds = _int64(seeds_u32, device)
+    dev = seeds.device
+    signs = _int64(signs, dev)
+    if seeds.shape[-1] == 0:
+        return torch.zeros(tuple(seeds.shape[:-1]) + (n,), dtype=torch.int32,
+                           device=dev)
+    pads = pad_u32_rows(seeds, n)                           # (..., P, n)
+    signed = torch.where((signs > 0)[..., None], pads, -pads)
+    signed = torch.where((signs != 0)[..., None], signed,
+                         torch.zeros_like(signed))
+    return _storage(signed.sum(dim=-2))
+
+
+def secagg_mask_rows(stacked, w_int, pair_seeds, pair_signs) -> torch.Tensor:
+    """Masked secagg contributions of every row of a stacked tree: leaves
+    (K, ...), integer weights (K,), pair seeds and signs (K, P) -> (K, n)
+    int32 storage; row k == ``secagg_mask_stream`` of row k."""
+    q = _q32(tree_leaves(stacked), 1).to(torch.int64)
+    w = _int64(w_int, q.device).reshape(-1, 1)
+    pads = sum_signed_pads(pair_seeds, pair_signs, q.shape[-1],
+                           device=q.device)
+    return _storage(q * w + pads.to(torch.int64))
+
+
+def secagg_mask_stream(tree, w_int, pair_seeds, pair_signs) -> torch.Tensor:
+    """One satellite's masked secagg contribution (what goes on the wire):
+    y = w_int · q(tree) + Σ sign · pad(seed) mod 2^32, as (n,) int32
+    storage. Pair seeds and signs (P,) come from the cohort's pairwise mask
+    shares (``KeyManager.share_edges`` / the plan's tables); partners that
+    fail to deliver are cancelled later (``KeyManager.recover_masks`` / the
+    plan's correction tables)."""
+    rows = tree_map(lambda x: x[None], tree)
+    dev = tree_leaves(rows)[0].device
+    return secagg_mask_rows(rows, [int(w_int)],
+                            _int64(pair_seeds, dev)[None],
+                            _int64(pair_signs, dev)[None])[0]

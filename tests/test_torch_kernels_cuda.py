@@ -608,6 +608,98 @@ def test_secure_trainer_launches_only_the_seeded_entries(edge_batched):
     assert tr.log.n_transfers > 0
 
 
+def _async_world(n_rounds=5):
+    """The 12-satellite trace (5 rounds: deferred deliveries merge at
+    rounds 1, 3 and 4), the 4-qubit model and data built on the CPU (the
+    trainer moves them to its device)."""
+    from repro_torch.constellation import build_trace
+    from repro_torch.data import dirichlet_partition, make_statlog
+    from repro_torch.data import server_split
+    from repro_torch.models import get_config, get_model
+    cfg = get_config("vqc-satqfl").replace(vqc_qubits=4, vqc_layers=1,
+                                           n_features=4)
+    X, y = make_statlog(n_features=4, device="cpu")
+    Xc, yc, server = server_split(X, y)
+    trace = build_trace(n_sats=12, n_planes=4, duration_s=1800, step_s=60,
+                        device="cpu")
+    return cfg, get_model(cfg), trace, dirichlet_partition(Xc, yc, 12), server
+
+
+def _ring_entries(tr, r, g):
+    """The entries main ``g``'s merge took from the ring at round r, as the
+    per-main-list oracle holds them, in (sat, born) order."""
+    st = tr.plan.stale
+    out = []
+    for s, slot in np.argwhere(st.merge_born[r, g] >= 0):
+        p = ({"y": tr._ring_y[s, slot].clone()}
+             if tr.fl.agg_security == "secagg" else
+             {k: v[s, slot].clone() for k, v in tr._ring.items()})
+        out.append((p, int(s), int(st.merge_born[r, g, s, slot])))
+    return sorted(out, key=lambda e: (e[1], e[2]))
+
+
+@pytest.mark.cuda
+def test_async_secagg_round_card_matches_cpu():
+    """async under qkd + secagg on the card and on the CPU: delivered
+    counts and accounting exactly equal, metrics within 1e-4, and the secagg
+    merge of the card's ring bit-equal on both devices at every round."""
+    _need_cuda()
+    from repro_torch.core import SatQFLConfig, SatQFLTrainer
+    cfg, api, trace, sats, server = _async_world()
+    fl = SatQFLConfig(mode="async", security="qkd", agg_security="secagg",
+                      n_rounds=5, local_steps=2, batch_size=8)
+    tc = SatQFLTrainer(cfg, api, fl, trace, sats, server, device="cuda")
+    tp = SatQFLTrainer(cfg, api, fl, trace, sats, server, device="cpu")
+    merged = 0
+    for r in range(fl.n_rounds):
+        mc, mp = tc.run_round(r), tp.run_round(r)
+        assert (mc.participants, mc.comm_s, mc.security_s) == \
+            (mp.participants, mp.comm_s, mp.security_s)
+        assert abs(mc.server_val_loss - mp.server_val_loss) <= 1e-4
+        if not tc.plan.stale.merge_any[r].any():
+            continue
+        ring = tc._ring_merge(r)
+        tp._ring_y = tc._ring_y.cpu()
+        tp.global_params = {k: v.cpu() for k, v in tc.global_params.items()}
+        host = tp._ring_merge(r)
+        for k in ring:
+            assert torch.equal(ring[k].cpu().view(torch.int32),
+                               host[k].view(torch.int32)), (r, k)
+        merged += 1
+    assert merged and tc.log.round_details == tp.log.round_details
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", ["none", "secagg"])
+def test_async_ring_merge_is_the_oracle_merge_on_card(agg):
+    """On the card, at every (round, main): the ring's merge == the
+    per-main-list oracle's merge of the same entries, bit for bit."""
+    _need_cuda()
+    from repro_torch.core import SatQFLConfig, SatQFLTrainer
+    cfg, api, trace, sats, server = _async_world()
+    tr = SatQFLTrainer(cfg, api,
+                       SatQFLConfig(mode="async", security="qkd",
+                                    agg_security=agg, n_rounds=5,
+                                    local_steps=2, batch_size=8),
+                       trace, sats, server, device="cuda")
+    tr.async_debug = True
+    checked = 0
+    for r in range(tr.fl.n_rounds):
+        tr.run_round(r)
+        ring = {m: t for rr, m, t in tr.async_merge_log if rr == r}
+        for g, m in enumerate(tr.plan.live_groups(r)):
+            fresh = _ring_entries(tr, r, g)
+            if not fresh:
+                continue
+            got = (tr._secagg_merge_oracle(m, fresh) if agg == "secagg"
+                   else tr._list_merge(g, fresh))
+            for k in got:
+                assert torch.equal(got[k].cpu().view(torch.int32),
+                                   ring[m][k].view(torch.int32)), (r, m, k)
+            checked += 1
+    assert checked == int(tr.plan.stale.merge_any.sum()) > 0
+
+
 def _swa_inputs(B, S, H, KV, hd, dtype, seed):
     rng = np.random.default_rng(seed)
     t = lambda shape, scale: torch.tensor(

@@ -111,9 +111,10 @@ def test_config_rejections_match(bad):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mode="seq"), "item 7"), (dict(mode="async"), "item 7"),
+    (dict(mode="async", crash_rate=0.1), "item 8"),
+    (dict(mode="async", link_flap_rate=0.1), "item 8"),
     (dict(straggler_rate=0.1), "item 8"),
-    (dict(mode="async", agg_security="secagg"), "item 7"),
+    (dict(security="qkd", corrupt_rate=0.1), "item 8"),
     (dict(crash_rate=0.1), "item 8"), (dict(link_flap_rate=0.1), "item 8")])
 def test_plan_refuses_what_is_not_ported(traces, kw, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -128,7 +128,8 @@ def test_batched_matches_per_client_oracle(world, mode):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mode="seq"), "item 7"), (dict(mode="async"), "item 7"),
+    (dict(mode="async", max_retries=2), "item 8"),
+    (dict(mode="seq", straggler_rate=0.1), "item 8"),
     (dict(straggler_rate=0.2), "item 8"), (dict(crash_rate=0.1), "item 8")])
 def test_trainer_refuses_what_is_not_ported(world, kw, item):
     _, port, _ = world
