@@ -60,7 +60,12 @@ all at once) and then:
    (2 rounds, without security and under qkd), async's staleness ring (4
    rounds, so deferred deliveries arrive: without security, under qkd,
    secagg, and qkd + secagg) and async qkd on the per-client oracle and
-   per-edge plane (3 rounds). Every launch count is set to 0 just before
+   per-edge plane (3 rounds); and ROADMAP item 8's fault plane at
+   tests/test_faults.py's rates (flap 0.3, crash 0.2, straggler 0.3,
+   tamper 0.3, seed 11): sim qkd edge-batched and on the per-edge oracle
+   (2 rounds, bit-equal params, equal accounting and fault reports), seq
+   qkd (2) and async qkd + secagg with 2 retries (4; some round must
+   retransmit). Every launch count is set to 0 just before
    each path and read just after; each path must launch each of its
    kernels and no other, and each round exactly what the compiled plan
    implies (``_plan_launches``: per local-training call — a stage of
@@ -68,14 +73,24 @@ all at once) and then:
    backward layers, 2·len(bwd_passes) launches a backward layer, plus 12
    forward layers of evaluation; the seeded OTP kernel twice a non-empty
    exchange stage edge-batched and twice a delivered edge on the per-edge
-   oracle; the given-pad entries never): #1 52 (qfl) and 92 (sim) a round,
+   oracle — an edge whose payload moves, delivered or tampered, never a
+   flapped or aborted one; crashed secondaries leave the training
+   stages, crashed mains ride the mains' stage as masked rows; the
+   given-pad entries never): #1 52 (qfl) and 92 (sim) a round,
    the layer backward qfl 60, sim 120 and 14 qubits 360, none under the
    shift rule, the seeded OTP kernel qfl 2 and sim 4; seq (hops + 1)·40 +
    12 of #1, async 92 (52 without a grouped secondary). Every round's val
    loss must be finite and below 10 (≈ ln 7). At the end of the async
    qkd and qkd + secagg paths the ring's last-round merges are held bit
    for bit against the per-main-list oracle's merges of the same entries
-   on the card;
+   on the card. On the fault paths every row with a tamper word must fail
+   the seeded kernel's MAC on the card and every other delivered row pass
+   (counts printed); async qkd + secagg with retries is run again for 2
+   rounds, checkpointed, restored into a fresh trainer and run on, and
+   must end bit-identical to its uninterrupted run (params as int32,
+   history, fault reports, comm log); and with ``on_fault="raise"`` the
+   first faulted round of sim qkd must raise the same ``FaultError``
+   subclass with the same sites on the card as on the CPU;
 6. runs the VQC at 20 qubits (one batch of 4): forward, autodiff and the
    parameter-shift rule, with their launches counted, against the same
    with the plain versions on the card; and one full-width local step of
@@ -84,11 +99,12 @@ all at once) and then:
    (≤ 1e-5), its launches counted (13 of #1, 96 of #3);
 7. runs the sim trainer on the CPU (plain path) and on the card, without
    security, under the parameter-shift rule (2 local steps of batch 8)
-   and under qkd, and async under qkd + secagg (4 rounds), and holds the
-   metrics within 1e-4 and the accounting and delivered counts exactly
-   equal (async: the secagg merge of the card's ring, run on both
-   devices, bit-equal); and one drop-mode round with forced eavesdroppers
-   on both, whose aborted edges must agree;
+   and under qkd, async under qkd + secagg (4 rounds) and sim under qkd
+   with faults (2 rounds), and holds the metrics within 1e-4 and the
+   accounting, delivered counts and fault reports exactly equal (async:
+   the secagg merge of the card's ring, run on both devices, bit-equal);
+   and one drop-mode round with forced eavesdroppers on both, whose
+   aborted edges must agree;
 8. profiles one warm round each of sim under qkd, under the
    parameter-shift rule and at 14 qubits, and of async under qkd and
    under secagg, with ``torch.profiler`` and prints the device-busy
@@ -138,6 +154,7 @@ non-zero.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -855,6 +872,10 @@ def phase_otp_seeded(torch, ops, ref):
     return worst, timings
 
 
+# the fault rates of tests/test_faults.py
+FAULTS = dict(link_flap_rate=0.3, crash_rate=0.2, straggler_rate=0.3,
+              corrupt_rate=0.3, fault_seed=11)
+
 # name -> the path's config; "batched", "edge_batched" and "qubits" go to
 # the trainer and the model config, the rest to SatQFLConfig
 TRAINER_PATHS = {
@@ -886,6 +907,20 @@ TRAINER_PATHS = {
                              agg_security="secagg", n_rounds=4),
     "async_qkd_oracle": dict(mode="async", security="qkd", n_rounds=3,
                              batched=False, edge_batched=False),
+    # ROADMAP item 8: the fault plane at tests/test_faults.py's rates —
+    # crashed senders leave the stages (crashed mains ride the mains'
+    # stage as masked rows), flapped links drop before data moves, and
+    # tampered payloads ride the seeded OTP kernel with their real keys
+    # and fail the receiver's MAC; async retransmits with backoff
+    "sim_qkd_faults": dict(mode="sim", security="qkd", n_rounds=2,
+                           **FAULTS),
+    "sim_qkd_faults_oracle": dict(mode="sim", security="qkd", n_rounds=2,
+                                  edge_batched=False, **FAULTS),
+    "seq_qkd_faults": dict(mode="seq", security="qkd", n_rounds=2,
+                           **FAULTS),
+    "async_qkd_secagg_retry": dict(mode="async", security="qkd",
+                                   agg_security="secagg", n_rounds=4,
+                                   max_retries=2, **FAULTS),
 }
 
 
@@ -926,22 +961,39 @@ def _path_kernels(spec: dict, edge_batched: bool, qubits: int) -> set:
 
 
 def _train_calls(tr, r: int) -> int:
-    """Local-training calls of round r, from the compiled plan: one per
-    stage of clients on the batched executor (qfl 1; sim and async 1 for
-    the secondaries if any, seq one per hop; 1 for the mains), one per
-    client on the per-client oracle."""
+    """Local-training calls of round r, from the compiled plan and its
+    fault schedule: one per stage of clients on the batched executor (qfl
+    1 if any satellite is up; sim and async 1 for the secondaries if any,
+    seq one per hop; 1 for the mains, crashed mains riding it as masked
+    rows), one per client on the per-client oracle (crashed satellites
+    and crashed mains train nothing). Crashed secondaries are out of the
+    plan's live groups."""
     fl, groups = tr.fl, tr.plan.live_groups(r)
     if fl.mode == "qfl":
-        return 1 if tr.batched else tr.n_sats
+        n = len(tr.plan.live_sats(r))
+        return int(n > 0) if tr.batched else n
     if not groups:
         return 0
     n_secs = sum(len(v) for v in groups.values())
     mains = len(groups) if fl.main_trains else 0
     if not tr.batched:
-        return n_secs + mains
+        return n_secs + (sum(not tr._crashed(r, m) for m in groups)
+                         if fl.main_trains else 0)
     sec_stages = (max(len(v) for v in groups.values()) if fl.mode == "seq"
                   else int(n_secs > 0))
     return sec_stages + int(mains > 0)
+
+
+def _exchanged_edges(tr, r: int) -> int:
+    """Edges of round r whose payload moves, from the compiled plan: every
+    scheduled edge but the QBER-aborted and the flapped ones (a tampered
+    payload moves, then fails the receiver's MAC)."""
+    es, fs = tr.plan.edges, tr.plan.faults
+    n = int(es.ptr[r, -1])
+    moved = ~es.abort[r, :n]
+    if fs is not None:
+        moved &= ~fs.link_flap[r, :n]
+    return int(moved.sum())
 
 
 def _plan_launches(tr, r: int, transfers: int) -> dict:
@@ -952,8 +1004,10 @@ def _plan_launches(tr, r: int, transfers: int) -> dict:
     backward launches each, and evaluation runs 3 forwards of 1 + L
     layers. Under qkd and qkd_fernet the seeded OTP kernel
     runs twice a non-empty exchange stage (sender and receiver) on the
-    edge-batched plane, twice a delivered edge (``transfers``) on the
-    per-edge oracle; the given-pad entries never."""
+    edge-batched plane, twice an edge whose payload moves on the per-edge
+    oracle (``_exchanged_edges``: delivered or tampered, never flapped or
+    aborted; the round's ``transfers`` must equal their count); the
+    given-pad entries never."""
     from repro_torch.kernels.statevec_gate import ops
     fl, cfg = tr.fl, tr.model_cfg
     nq, L, E = cfg.vqc_qubits, cfg.vqc_layers, fl.local_steps
@@ -971,13 +1025,17 @@ def _plan_launches(tr, r: int, transfers: int) -> dict:
                                            * len(ops.bwd_passes(nq)))
     if fl.security in ("qkd", "qkd_fernet"):
         es = tr.plan.edges
+        moved = _exchanged_edges(tr, r)
+        if transfers != moved:
+            raise PhaseError(f"round {r}: {transfers} transfers, the plan "
+                             f"moves {moved} payloads")
         stages = sum(int(es.ptr[r, s + 1] > es.ptr[r, s])
                      for s in range(int(es.n_stages[r])))
         want.update({"otp_xor_mac_edges": 0, "otp_xor_mac": 0,
                      "otp_xor_mac_edges_seeded":
                          2 * stages if tr.edge_batched else 0,
                      "otp_xor_mac_seeded":
-                         0 if tr.edge_batched else 2 * transfers})
+                         0 if tr.edge_batched else 2 * moved})
     return want
 
 
@@ -1033,6 +1091,7 @@ def phase_trainer(torch, kops, trace, sats, server):
                            device="cuda")
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
+        macs = _spy_macs(tr) if fl.corrupt_rate > 0 else None
         rounds = []
         _reset(kops)
         for r in range(fl.n_rounds):
@@ -1058,7 +1117,9 @@ def phase_trainer(torch, kops, trace, sats, server):
                 "val_loss": m.server_val_loss, "val_acc": m.server_val_acc,
                 "participants": m.participants, "comm_s": m.comm_s,
                 "security_s": m.security_s,
-                "teleport_fidelity": m.teleport_fidelity})
+                "teleport_fidelity": m.teleport_fidelity,
+                "faults": (dataclasses.asdict(tr.fault_reports[-1])
+                           if tr.plan.faults is not None else None)})
             print(f"trainer {path} " + json.dumps(rounds[-1]))
             if not (math.isfinite(m.server_val_loss)
                     and m.server_val_loss < 10.0):
@@ -1077,13 +1138,17 @@ def phase_trainer(torch, kops, trace, sats, server):
                                  f"times; it runs {sorted(need)}")
         report[path] = {"setup_s": setup_s, "rounds": rounds}
         finals[path] = tr
-        if fl.mode in ("seq", "async"):
+        if macs is not None:
+            report[path]["mac_check"] = _check_tamper_macs(path, tr, macs)
+        if fl.mode in ("seq", "async") or tr.plan.faults is not None:
             seconds = [round(x["seconds"], 4) for x in rounds]
             rs = range(fl.n_rounds)
             tail = (f"rounds with deliveries "
                     f"{[x['round'] for x in rounds if x['merged']]}"
                     if fl.mode == "async" else
-                    f"hops {[int(tr.plan.edges.n_stages[r]) - 1 for r in rs]}")
+                    f"hops {[int(tr.plan.edges.n_stages[r]) - 1 for r in rs]}"
+                    if fl.mode == "seq" else
+                    f"participants {[x['participants'] for x in rounds]}")
             print(f"trainer {path}: round seconds {seconds}, {tail}")
     a, b = finals["sim_qkd"], finals["sim_qkd_oracle"]
     for k in a.global_params:
@@ -1097,12 +1162,152 @@ def phase_trainer(torch, kops, trace, sats, server):
                              f"at round {ma.round}")
     print("trainer: edge-batched == per-edge oracle, bit-exact params and "
           "equal accounting over 3 sim qkd rounds")
+    a, b = finals["sim_qkd_faults"], finals["sim_qkd_faults_oracle"]
+    for k in a.global_params:
+        if not torch.equal(a.global_params[k].view(torch.int32),
+                           b.global_params[k].view(torch.int32)):
+            raise PhaseError(f"edge-batched and per-edge params differ under "
+                             f"faults: {k}")
+    if (a.fault_reports != b.fault_reports
+            or a.log.round_details != b.log.round_details
+            or [h.participants for h in a.history]
+            != [h.participants for h in b.history]):
+        raise PhaseError("edge-batched and per-edge fault reports or "
+                         "accounting differ under faults")
+    print(f"trainer: under faults, edge-batched == per-edge oracle, "
+          f"bit-exact params, equal accounting and fault reports "
+          f"{json.dumps([dataclasses.asdict(f) for f in a.fault_reports])}")
+    retry = finals["async_qkd_secagg_retry"]
+    retries = [f.retries for f in retry.fault_reports]
+    if not any(retries):
+        raise PhaseError(f"async_qkd_secagg_retry: no round retransmitted "
+                         f"({retries})")
+    report["fault_resume"] = phase_fault_resume(torch, trace, sats, server,
+                                                retry)
     checked = {p: _check_ring_vs_list(torch, finals[p])
                for p in ("async_qkd", "async_qkd_secagg")}
     print(f"trainer: the ring's last-round merges == the per-main-list "
           f"oracle's merges of the same entries, bit for bit: "
           f"{json.dumps(checked)}")
     return launches, report
+
+
+def _spy_macs(tr) -> list:
+    """Record (tamper word, pad seed, MAC ok) of every row the trainer's
+    secure stages and per-edge exchanges send through the seeded OTP
+    kernel (the receiver's MAC of what it received against the sender's
+    tag). Reads the results the trainer computes; launches nothing."""
+    seen = []
+    stage, edge = tr._secure_stage, tr._secure_edge
+
+    def spy_stage(stacked, seeds, mac_r, mac_s, tamper):
+        out, ok = stage(stacked, seeds, mac_r, mac_s, tamper)
+        seen.extend(zip(tamper.tolist(), seeds.tolist(), ok.cpu().tolist()))
+        return out, ok
+
+    def spy_edge(params, seed, mac_r, mac_s, tamper=0):
+        out, ok = edge(params, seed, mac_r, mac_s, tamper)
+        seen.append((tamper, seed, ok))
+        return out, ok
+
+    tr._secure_stage, tr._secure_edge = spy_stage, spy_edge
+    return seen
+
+
+def _check_tamper_macs(path, tr, seen) -> dict:
+    """Every row with a non-zero tamper word failed the MAC on the card;
+    every other row with a pad seed (a delivered payload) passed; and the
+    tampered rows are the plan's detected corruptions."""
+    tampered = [ok for t, _, ok in seen if t]
+    clean = [ok for t, sd, ok in seen if not t and sd]
+    out = {"tampered_rows": len(tampered),
+           "tampered_rejected": tampered.count(False),
+           "delivered_rows": len(clean), "delivered_passed": clean.count(True)}
+    print(f"trainer {path}: MAC on the card " + json.dumps(out))
+    want = sum(f.corruptions for f in tr.fault_reports)
+    if not tampered or any(tampered) or not all(clean) or not clean:
+        raise PhaseError(f"{path}: the seeded kernel's MAC passed a tampered "
+                         f"row or failed a delivered one: {out}")
+    if len(tampered) != want:
+        raise PhaseError(f"{path}: {len(tampered)} tampered rows reached the "
+                         f"kernel, the plan detects {want} corruptions")
+    return out
+
+
+def phase_fault_resume(torch, trace, sats, server, reference) -> dict:
+    """Kill/resume on the card: the trainer of ``reference``'s config runs
+    2 rounds, writes a round checkpoint, and a fresh trainer restores it
+    and runs the rest. Its params (int32 views), history, fault reports
+    and comm log must equal ``reference``'s uninterrupted run."""
+    import shutil
+    import tempfile
+    from repro_torch.core import SatQFLTrainer
+    fl = reference.fl
+    make = lambda: SatQFLTrainer(reference.model_cfg, reference.api, fl,
+                                 trace, sats, server, device="cuda")
+    base = ROOT / "build"
+    base.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=base)
+    try:
+        t0 = time.perf_counter()
+        b = make()
+        for r in range(2):
+            b.run_round(r)
+        path = b.save_round_checkpoint(tmp)
+        size = Path(path).stat().st_size
+        c = make()
+        if c.restore_round_checkpoint(tmp) != 2:
+            raise PhaseError("resume: the checkpoint is not at round 2")
+        for r in range(2, fl.n_rounds):
+            c.run_round(r)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k in reference.global_params:
+        if not torch.equal(reference.global_params[k].view(torch.int32),
+                           c.global_params[k].view(torch.int32)):
+            raise PhaseError(f"resumed params differ from the uninterrupted "
+                             f"run's: {k}")
+    hist = lambda t: [json.dumps(dataclasses.asdict(h)) for h in t.history]
+    if (hist(reference) != hist(c)
+            or reference.fault_reports != c.fault_reports
+            or dataclasses.asdict(reference.log) != dataclasses.asdict(c.log)):
+        raise PhaseError("the resumed run's history, fault reports or comm "
+                         "log differ from the uninterrupted run's")
+    out = {"checkpoint_bytes": size, "seconds": seconds}
+    print(f"resume: async qkd + secagg with faults and retries, killed "
+          f"after round 2 and resumed on the card: bit-identical to the "
+          f"uninterrupted {fl.n_rounds} rounds " + json.dumps(out))
+    return out
+
+
+def phase_fault_raise(torch, trace, sats, server):
+    """``on_fault='raise'`` at sim_qkd_faults' rates: the first faulted
+    round raises the same FaultError subclass with the same sites on the
+    card as on the CPU."""
+    from repro_torch.core import SatQFLConfig, SatQFLTrainer
+    from repro_torch.models import get_config, get_model
+    from repro_torch.security.errors import FaultError
+    cfg = get_config("vqc-satqfl")
+    fl = SatQFLConfig(**TRAINER_PATHS["sim_qkd_faults"], local_steps=10,
+                      batch_size=32, on_fault="raise")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        tr = SatQFLTrainer(cfg, get_model(cfg), fl, trace, sats, server,
+                           device=dev)
+        try:
+            tr.run()
+        except FaultError as err:
+            got[dev] = (type(err).__name__, err.sites, len(tr.history))
+        else:
+            raise PhaseError(f"on_fault='raise' raised nothing on {dev}")
+    if got["cuda"] != got["cpu"]:
+        raise PhaseError(f"on_fault='raise' differs: {got}")
+    name, sites, done = got["cuda"]
+    print(f"raise: {name} at round {done} on the card and the CPU, "
+          f"{len(sites)} sites {sites[:4]}")
+    return got["cuda"]
 
 
 def _ring_entries(tr, r: int, g: int) -> list:
@@ -1313,9 +1518,11 @@ def phase_shift_step(torch, kops, ref):
 def phase_cross_device(torch, trace, sats, server):
     """The same runs on the CPU (plain path) and on the card: sim without
     security (1 round), under the parameter-shift rule (1 round of 2 local
-    steps of batch 8) and under qkd (2 rounds) within 1e-4 and with equal accounting; one drop-mode
-    round with forced eavesdroppers on every edge of satellites 0-4, whose
-    aborted edges must agree."""
+    steps of batch 8), under qkd (2 rounds), async under qkd + secagg (4
+    rounds) and sim under qkd with faults (2 rounds) within 1e-4 and with
+    equal accounting and fault reports; one drop-mode round with forced
+    eavesdroppers on every edge of satellites 0-4, whose aborted edges
+    must agree."""
     from repro_torch.core import SatQFLConfig, SatQFLTrainer
     from repro_torch.models import get_config, get_model
     from repro_torch.security import canonical_edge
@@ -1334,7 +1541,10 @@ def phase_cross_device(torch, trace, sats, server):
              # the staleness ring with secagg, deferred deliveries included
              "async_qkd_secagg": (dict(mode="async", security="qkd",
                                        agg_security="secagg", n_rounds=4),
-                                  frozenset())}
+                                  frozenset()),
+             # the fault plane: equal fault reports on both devices
+             "sim_qkd_faults": (dict(TRAINER_PATHS["sim_qkd_faults"]),
+                                frozenset())}
     worst = {}
     for name, (kw, eavs) in cases.items():
         fl = SatQFLConfig(**{"mode": "sim", "local_steps": 10,
@@ -1364,6 +1574,9 @@ def phase_cross_device(torch, trace, sats, server):
                                  f"cuda and cpu")
         if a.aborted_edges != b.aborted_edges:
             raise PhaseError(f"{name}: aborted edges differ between cuda "
+                             f"and cpu")
+        if a.fault_reports != b.fault_reports:
+            raise PhaseError(f"{name}: fault reports differ between cuda "
                              f"and cpu")
         if eavs and not a.aborted_edges:
             raise PhaseError(f"{name}: no edge aborted under eavesdropping")
@@ -1952,6 +2165,7 @@ def main() -> int:
     kops = (ops, otp_ops, swa_ops, ssd_ops)
     launches, report = phase_trainer(torch, kops, trace, sats, server)
     print(f"trainer launches by path: {json.dumps(launches)}")
+    phase_fault_raise(torch, trace, sats, server)
     print("trainer report: " + json.dumps(report))
     wide_launches, _ = phase_wide_vqc(torch, kops, ref)
     launches.update(wide_launches)

@@ -1,9 +1,9 @@
 """sat-QFL run configuration (a copy of ``repro.core.flconfig``).
 
 Every field and every ``__post_init__`` rejection of the JAX package is
-kept, so a config is valid in the port exactly when it is valid there;
-what the port does not run yet is refused by the trainer and the plan
-compiler with ``NotImplementedError``.
+kept, so a config is valid in the port exactly when it is valid there,
+and ``dataclasses.asdict`` of a config is the same dict in both packages
+(a round checkpoint's fingerprint).
 """
 from __future__ import annotations
 

@@ -10,32 +10,139 @@ the buffer's merge masks from the plan instead of re-deriving them inside
 the round loop.
 
 The port compiles plans for all four modes (qfl, sim, seq, async), every
-security mode and ``agg_security`` none or secagg, with every fault rate
-at 0. Given a key registry (the trainer's
-:class:`~repro_torch.security.keys.KeyManager`) the EdgeSchedule carries
-per-(round, edge) key material, every edge established in one batched
-BB84; ``with_seeds=True`` also fills the per-(round, satellite) ``seeds``.
-A fault plane (ROADMAP queue 1, item 8) raises ``NotImplementedError``;
-until it comes, ``_live_groups_of`` is the one place where crashed
-satellites would leave the groups.
+security mode, ``agg_security`` none or secagg, and the seeded fault plane
+(:class:`FaultSchedule`: link flaps, satellite crashes, stragglers, payload
+tampering and async retransmission with backoff). Given a key registry
+(the trainer's :class:`~repro_torch.security.keys.KeyManager`) the
+EdgeSchedule carries per-(round, edge) key material, every edge
+established in one batched BB84; ``with_seeds=True`` also fills the
+per-(round, satellite) ``seeds``. With every fault rate at 0 the plan
+carries no fault plane (``faults is None``) and every schedule is the
+fault-free one.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from repro_torch import prng
 from repro_torch.constellation.topology import (
     ConstellationTrace, isl_routes_batched, pairwise_distances, round_steps,
 )
 from repro_torch.core.flconfig import SatQFLConfig
+from repro_torch.device import resolve_device
 from repro_torch.security.keys import (KeyManager, canonical_edge,
                                        mac_key_mix, pairwise_mask_seed,
                                        round_seed_mix)
 from repro_torch.security.otp import SECAGG_CLIP, SECAGG_W_MAX
 
 GROUND = -1    # edge endpoint id for the ground station ("gs")
+
+# fault-site hash domains: distinct constants keep the four fault kinds
+# statistically independent even at the same (round, edge/sat) site
+_FAULT_KIND = {"flap": 0x464C4150, "crash": 0x43525348,
+               "strag": 0x53545247, "tamper": 0x54414D50}
+
+
+def _edge_ids(edge, n_sats: int) -> tuple[int, int]:
+    """Order-free integer endpoints of an edge; the ground station maps
+    to ``n_sats`` so ('gs', s) and (s, 'gs') hash identically."""
+    ids = [n_sats if e in ("gs", GROUND) else int(e) for e in edge]
+    return min(ids), max(ids)
+
+
+def fault_site_u32(fault_seed: int, kind: str, round_idx: int, a: int,
+                   b: int = 0, attempt: int = 0) -> np.uint32:
+    """Deterministic per-site fault hash: a chain of the numpy mixer the
+    pad-seed schedule uses (``round_seed_mix``), so the per-client oracle
+    and the batched executor derive identical sites from (seed, kind,
+    round, endpoints, attempt) with no shared state."""
+    h = round_seed_mix(np.uint32((fault_seed ^ _FAULT_KIND[kind])
+                                 & 0xFFFFFFFF), round_idx)
+    h = round_seed_mix(h, a + 1)
+    h = round_seed_mix(h, b + 1)
+    return np.uint32(round_seed_mix(h, attempt + 0x51ED))
+
+
+def _fault_hit(u32, rate: float) -> bool:
+    """uint32 hash < rate·2³²: exact at rate 0 and 1."""
+    return int(u32) < int(rate * 4294967296.0)
+
+
+@dataclass(frozen=True)
+class FaultSchedule:
+    """Seeded fault-injection schedule compiled into the RoundPlan.
+
+    Every fault site is a pure function of ``(fault_seed, kind, round,
+    endpoints[, attempt])`` through :func:`fault_site_u32`, thresholded by
+    the config's rates: the dense arrays tabulate that function and the
+    pointwise accessors (``flap_of`` / ``tamper_of``) recompute it, so the
+    per-edge oracle (which never sees edge-slot indices) and the batched
+    executor (which reads the arrays) cannot drift apart. With every rate
+    at 0 ``compile_round_plan`` attaches no schedule (``plan.faults is
+    None``).
+
+    * ``crash[r, s]``: satellite ``s``'s payload computer is down for
+      round ``r``; it neither trains nor sends. A crashed MAIN still
+      relays, merges and feeds (the comms bus survives) but skips its own
+      ``main_trains`` step.
+    * ``straggler[r, s]``: its upload wall (or async transmit wait) gains
+      ``straggler_extra_s`` seconds; never set where ``crash`` is.
+    * ``link_flap[r, j]``: EdgeSchedule slot ``(r, j)`` drops before the
+      payload moves (establishment, if due, is still paid), like a QBER
+      abort. Async ISL arrivals are never flapped here: their flap/retry
+      history was resolved by the retransmit ledger, and the arrival
+      schedule holds only the surviving attempts.
+    * ``tamper[r, j]``: nonzero word XORed into the first wire word of
+      slot ``(r, j)``; the receiver's MAC rejects the payload after
+      transfer and crypto time were paid.
+    * ``flap_events / retry_events / lost_events / recovered_events``: the
+      async retransmit ledger, charged to the round each attempt targeted.
+    """
+    seed: int
+    n_sats: int
+    link_flap_rate: float
+    crash_rate: float
+    straggler_rate: float
+    corrupt_rate: float
+    straggler_extra_s: float
+    max_retries: int
+    retry_backoff_steps: int
+    crash: np.ndarray             # (R, N) bool
+    straggler: np.ndarray         # (R, N) bool
+    link_flap: np.ndarray         # (R, E_max) bool — EdgeSchedule-aligned
+    tamper: np.ndarray            # (R, E_max) uint32 — 0 = clean
+    attempt: np.ndarray           # (R, E_max) int32 — delivery attempt of
+                                  #   async arrival slots (0 elsewhere)
+    flap_events: np.ndarray       # (R,) int32
+    retry_events: np.ndarray      # (R,) int32
+    lost_events: np.ndarray       # (R,) int32
+    recovered_events: np.ndarray  # (R,) int32
+    recovered: np.ndarray         # (R, N) bool — update born (r, s)
+                                  #   delivered only via retransmit
+
+    def flap_of(self, born: int, edge, attempt: int = 0) -> bool:
+        """Pointwise link-flap test: the hash the arrays tabulate."""
+        if self.link_flap_rate <= 0:
+            return False
+        a, b = _edge_ids(edge, self.n_sats)
+        return _fault_hit(fault_site_u32(self.seed, "flap", born, a, b,
+                                         attempt), self.link_flap_rate)
+
+    def tamper_of(self, born: int, edge) -> int:
+        """Pointwise tamper word (0 = clean): the hash the array holds."""
+        if self.corrupt_rate <= 0:
+            return 0
+        a, b = _edge_ids(edge, self.n_sats)
+        u = fault_site_u32(self.seed, "tamper", born, a, b)
+        if not _fault_hit(u, self.corrupt_rate):
+            return 0
+        return int(np.uint32(u) | np.uint32(1))     # never zero
+
+    def straggler_extra(self, r: int, s: int) -> float:
+        return self.straggler_extra_s if self.straggler[r, s] else 0.0
 
 
 @dataclass(frozen=True)
@@ -158,6 +265,8 @@ class RoundPlan:
     weights: np.ndarray           # (N,) float32 — FedAvg aggregation weights w_i
     edges: EdgeSchedule | None = None
     stale: StalenessSchedule | None = None  # async bounded-staleness buffer
+    faults: FaultSchedule | None = None     # seeded fault-injection plane
+                                  #   (None whenever every fault rate is 0)
 
     def groups(self, r: int) -> dict[int, list[int]]:
         """{main: [secondaries]} at round r (the paper's {SecSat} grouping)."""
@@ -165,9 +274,28 @@ class RoundPlan:
 
     def live_groups(self, r: int) -> dict[int, list[int]]:
         """The groups both engines iterate and every stage was compiled
-        from: ``groups(r)`` minus crashed secondaries (``_live_groups_of``;
-        without a fault plane, ``groups(r)``)."""
-        return _live_groups_of(self.groups(r))
+        from: ``groups(r)`` minus crash-faulted secondaries. Mains stay even
+        when crashed (the comms bus survives); the engines skip only their
+        own ``main_trains`` step."""
+        f = self.faults
+        return _live_groups_of(self.groups(r),
+                               f.crash[r] if f is not None else None)
+
+    def live_sats(self, r: int) -> list[int]:
+        """All non-crashed satellites at round r (the qfl sender set)."""
+        f = self.faults
+        return [s for s in range(self.n_sats)
+                if f is None or not f.crash[r, s]]
+
+    def fault_mask(self, r: int, device=None) -> torch.Tensor:
+        """(N,) float32 health vector on ``device``: 1 = healthy, 0 =
+        crash-faulted this round; all ones without a fault plane, so
+        callers can pass it unconditionally."""
+        dev = resolve_device(device)
+        if self.faults is None:
+            return torch.ones((self.n_sats,), dtype=torch.float32, device=dev)
+        return torch.from_numpy(
+            1.0 - self.faults.crash[r].astype(np.float32)).to(dev)
 
     def unreachable(self, r: int) -> list[int]:
         return [int(s) for s in np.where(self.assignment[r] < 0)[0]]
@@ -212,34 +340,40 @@ def _groups_of(assignment_r: np.ndarray, prim_r: np.ndarray):
     return out
 
 
-def _live_groups_of(groups: dict) -> dict:
-    """The groups minus crash-faulted secondaries: the one place the fault
-    plane (ROADMAP queue 1, item 8) plugs into the schedules. Without it
-    no satellite crashes, so every group is live."""
-    return groups
+def _live_groups_of(groups: dict, crash_r=None) -> dict:
+    """The groups minus crash-faulted secondaries (``crash_r`` (N,) bool,
+    or None without a fault plane)."""
+    if crash_r is None or not crash_r.any():
+        return groups
+    return {m: [s for s in secs if not crash_r[s]]
+            for m, secs in groups.items()}
 
 
 def _round_stages(fl: SatQFLConfig, assignment_r, prim_r, n_sats: int,
-                  arrivals_r=None):
+                  arrivals_r=None, crash_r=None):
     """Edge list (src, dst, link, conc, born) of each dispatch stage of
     one round, in the order the trainer walks it, ``born`` -1 for this
     round: qfl = one feeder stage; sim = ISL uplinks, then feeder; async =
     the staleness schedule's compiled ARRIVALS (updates whose window has
     opened by this round, possibly born rounds earlier), then feeder; seq
-    = one stage per chain hop, then feeder."""
+    = one stage per chain hop, then feeder. Crash-faulted satellites send
+    nothing, so their edges never enter a stage (a crashed main keeps its
+    feeder: the comms bus survives)."""
     def now(edges):
         return [(a, b, lk, c, -1) for (a, b, lk, c) in edges]
 
     if fl.mode == "qfl":
-        return [now([(s, GROUND, 1, 1) for s in range(n_sats)])]
-    groups = _live_groups_of(_groups_of(assignment_r, prim_r))
+        return [now([(s, GROUND, 1, 1) for s in range(n_sats)
+                     if crash_r is None or not crash_r[s]])]
+    groups = _live_groups_of(_groups_of(assignment_r, prim_r), crash_r)
     mains = list(groups)
     stages = []
     if fl.mode == "sim":
         stages.append(now([(s, m, 0, max(len(groups[m]), 1))
                            for m in mains for s in groups[m]]))
     elif fl.mode == "async":
-        stages.append([(s, m, 0, 1, b) for (s, m, b) in (arrivals_r or [])])
+        stages.append([(s, m, 0, 1, b)
+                       for (s, m, b, _k) in (arrivals_r or [])])
     elif fl.mode == "seq":
         chains = [groups[m] for m in mains]
         for hop in range(max((len(c) for c in chains), default=0)):
@@ -276,11 +410,13 @@ def _seed_schedule(assignment, prim, fl: SatQFLConfig, keymgr: KeyManager):
 
 
 def _edge_schedule(fl: SatQFLConfig, assignment, prim,
-                   keymgr: KeyManager | None, arrivals=None) -> EdgeSchedule:
+                   keymgr: KeyManager | None, arrivals=None,
+                   crash=None) -> EdgeSchedule:
     """Compile the per-round exchange plane (see EdgeSchedule)."""
     R, N = assignment.shape
     per_round = [_round_stages(fl, assignment[r], prim[r], N,
-                               arrivals[r] if arrivals is not None else None)
+                               arrivals[r] if arrivals is not None else None,
+                               crash[r] if crash is not None else None)
                  for r in range(R)]
     S_max = max(len(st) for st in per_round)
     E_max = max(max(sum(len(s) for s in st) for st in per_round), 1)
@@ -333,7 +469,7 @@ def _edge_schedule(fl: SatQFLConfig, assignment, prim,
 
 
 def _async_send_schedule(fl: SatQFLConfig, assignment, prim,
-                         trace: ConstellationTrace, t_idx):
+                         trace: ConstellationTrace, t_idx, crash=None):
     """Phase A of the staleness compiler: the send/arrival plan.
 
     A secondary trains DURING its round's access window, so its update can
@@ -344,59 +480,122 @@ def _async_send_schedule(fl: SatQFLConfig, assignment, prim,
     beyond the horizon, or it would already exceed Δ_max on arrival, so
     async updates always merge with staleness ≥ 1.
 
-    Every transmission succeeds: the fault plane's flapped attempts and
-    their retransmit ledger come with ROADMAP queue 1, item 8.
+    With ``fl.link_flap_rate > 0`` each transmission attempt may FLAP
+    (drop before the payload moves). A flapped delivery re-enters the
+    schedule with bounded exponential backoff: retransmission ``k``
+    searches for the next open ISL step at or past ``fail_step +
+    retry_backoff_steps · 2^min(k−1, 6)``, up to ``max_retries`` attempts,
+    still bounded by Δ_max and the horizon, after which the update is
+    LOST. The whole retry history is resolved here, so the arrival
+    schedule holds only surviving attempts (with their attempt index, for
+    the recovery ledger) and both executors replay identical outcomes.
 
     Returns (delay_rounds, deliver_round, tx_wait_s, arrivals, groups per
-    round); ``arrivals[r]`` lists (sat, dest main, born) in delivery order
-    — born ascending, then the born round's group order — the order the
-    per-main-list oracle's outbox drains.
+    round, fault_info); ``arrivals[r]`` lists (sat, dest main, born,
+    attempt) in delivery order — born ascending, then the born round's
+    group order — the order the per-main-list oracle's outbox drains.
+    ``fault_info`` is the retransmit ledger (per-round flap / retry / lost
+    / recovered counts and per-(born, sat) flags), None without a flap
+    rate.
     """
     R, N = assignment.shape
     t_idx = np.asarray(t_idx, np.int64)
     step = (float(trace.times_s[1] - trace.times_s[0])
             if trace.n_steps > 1 else 0.0)
-    groups_r = [_live_groups_of(_groups_of(assignment[r], prim[r]))
+    groups_r = [_live_groups_of(_groups_of(assignment[r], prim[r]),
+                                crash[r] if crash is not None else None)
                 for r in range(R)]
     has_mains = [len(g) > 0 for g in groups_r]
     delay = np.full((R, N), -1, np.int64)
     deliver = np.full((R, N), -1, np.int64)
     tx_wait = np.full((R, N), np.inf)
+    flap_on = fl.link_flap_rate > 0
+    fs_seed = fl.fault_seed & 0xFFFFFFFF
+    flap_events, retry_events, lost_events, recovered_events = (
+        np.zeros((R,), np.int32) for _ in range(4))
+    attempt_of = np.zeros((R, N), np.int32)
+    recovered = np.zeros((R, N), bool)
     for b in range(R):
         t = int(t_idx[b])
         for m, secs in groups_r[b].items():
             for s in secs:
-                hits = np.where(trace.ss_access[s, m, t + 1:])[0]
-                if len(hits) == 0:
-                    continue            # the window never reopens
-                k_tx = t + 1 + int(hits[0])
-                tx_wait[b, s] = (k_tx - t) * step
-                ks = np.where(t_idx[b:] >= k_tx)[0]
-                if len(ks) == 0:
-                    continue            # opens past the round horizon
-                delay[b, s] = int(ks[0])
-                rd = next((k for k in range(b + int(ks[0]), R)
-                           if has_mains[k]), None)
-                if rd is None or rd - b > fl.max_staleness:
-                    continue            # too stale to bother transmitting
-                deliver[b, s] = rd
+                attempt = 0
+                k_from = t + 1       # first step a transmission may use
+                fail_rd = -1         # round of the last failed attempt
+                while True:
+                    hits = np.where(trace.ss_access[s, m, k_from:])[0]
+                    if len(hits) == 0:
+                        # the window never reopens inside the trace: a
+                        # plain drop on attempt 0, a fault-caused loss later
+                        if attempt > 0:
+                            lost_events[fail_rd] += 1
+                        break
+                    k_tx = k_from + int(hits[0])
+                    if attempt == 0:
+                        tx_wait[b, s] = (k_tx - t) * step
+                    ks = np.where(t_idx[b:] >= k_tx)[0]
+                    if len(ks) == 0:
+                        if attempt > 0:
+                            lost_events[fail_rd] += 1
+                        break           # opens past the round horizon
+                    if attempt == 0:
+                        delay[b, s] = int(ks[0])
+                    rd = next((k for k in range(b + int(ks[0]), R)
+                               if has_mains[k]), None)
+                    if rd is None or rd - b > fl.max_staleness:
+                        if attempt > 0:
+                            lost_events[fail_rd] += 1
+                        break           # too stale to bother transmitting
+                    if flap_on and _fault_hit(
+                            fault_site_u32(fs_seed, "flap", b,
+                                           min(s, m), max(s, m), attempt),
+                            fl.link_flap_rate):
+                        # the transmission at k_tx drops; the event is
+                        # charged to the round that would have received it
+                        flap_events[rd] += 1
+                        fail_rd = rd
+                        if attempt >= fl.max_retries:
+                            lost_events[rd] += 1
+                            break       # retry budget exhausted: lost
+                        retry_events[rd] += 1
+                        k_from = k_tx + fl.retry_backoff_steps * (
+                            2 ** min(attempt, 6))
+                        attempt += 1
+                        continue
+                    deliver[b, s] = rd
+                    attempt_of[b, s] = attempt
+                    if attempt > 0:
+                        recovered[b, s] = True
+                        recovered_events[rd] += 1
+                    break
     arrivals = [[] for _ in range(R)]
     for b in range(R):
         for m, secs in groups_r[b].items():
             for s in secs:
                 if deliver[b, s] >= 0:
-                    arrivals[int(deliver[b, s])].append((int(s), int(m), b))
-    return delay, deliver, tx_wait, arrivals, groups_r
+                    arrivals[int(deliver[b, s])].append(
+                        (int(s), int(m), b, int(attempt_of[b, s])))
+    fault_info = None
+    if flap_on:
+        fault_info = {"flap_events": flap_events,
+                      "retry_events": retry_events,
+                      "lost_events": lost_events,
+                      "recovered_events": recovered_events,
+                      "attempt_of": attempt_of, "recovered": recovered}
+    return delay, deliver, tx_wait, arrivals, groups_r, fault_info
 
 
 def _staleness_schedule(fl: SatQFLConfig, delay, deliver, tx_wait, arrivals,
                         groups_r, weights, es: EdgeSchedule,
-                        keymgr: KeyManager | None) -> StalenessSchedule:
+                        keymgr: KeyManager | None,
+                        faults: FaultSchedule | None = None
+                        ) -> StalenessSchedule:
     """Phase B: simulate the buffer's lifecycle into dense merge arrays.
 
     Runs the pending-queue mechanics the per-main-list oracle runs live —
     arrivals append (minus QBER-aborted edges when the exchange is
-    secured), each current main merges its fresh entries and discards the
+    secured, and minus tamper-faulted deliveries, whose MAC the receiver
+    rejects), each current main merges its fresh entries and discards the
     stale ones — and records the outcome as ring-frame masks. For secagg it
     also deals the pairwise mask shares of every born round's cohort and
     compiles each merge's signed corrections for absent partners.
@@ -410,10 +609,20 @@ def _staleness_schedule(fl: SatQFLConfig, delay, deliver, tx_wait, arrivals,
     aborted = {}
     if es.with_keys and fl.security != "none" and keymgr is not None:
         for r in range(R):
-            for (s, m, _b) in arrivals[r]:
+            for (s, m, _b, _k) in arrivals[r]:
                 e = canonical_edge((s, m))
                 if e not in aborted:
                     aborted[e] = keymgr.get(e).compromised
+
+    # tamper-faulted deliveries fail the receiver's MAC and never enter the
+    # buffer; keyed by the BORN round, so two in-flight updates on one edge
+    # fault independently (the pad fold-in's convention)
+    tampered: set = set()
+    if faults is not None and faults.corrupt_rate > 0:
+        for r in range(R):
+            for (s, m, b, _k) in arrivals[r]:
+                if faults.tamper_of(b, (s, m)):
+                    tampered.add((s, m, b))
 
     main_ids = np.full((R, G), -1, np.int64)
     send_slot = np.full((R, N), -1, np.int64)
@@ -457,9 +666,11 @@ def _staleness_schedule(fl: SatQFLConfig, delay, deliver, tx_wait, arrivals,
     for r in range(R):
         mains = list(groups_r[r])
         main_ids[r, :len(mains)] = mains
-        for (s, m, b) in arrivals[r]:
+        for (s, m, b, _k) in arrivals[r]:
             if aborted.get(canonical_edge((s, m)), False):
                 continue                    # QBER abort: update dropped
+            if (s, m, b) in tampered:
+                continue                    # MAC-rejected on arrival
             pending.setdefault(m, []).append((s, b))
         for g, m in enumerate(mains):
             fresh = sorted([(s, b) for (s, b) in pending.get(m, [])
@@ -519,14 +730,82 @@ def _staleness_schedule(fl: SatQFLConfig, delay, deliver, tx_wait, arrivals,
         corr_seed=corr_seed, corr_sign=corr_sign)
 
 
-def check_supported(fl: SatQFLConfig):
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    the fault plane."""
-    if (fl.link_flap_rate > 0 or fl.crash_rate > 0 or fl.straggler_rate > 0
-            or fl.corrupt_rate > 0 or fl.max_retries > 0):
-        raise NotImplementedError(
-            "fault injection is not ported yet (ROADMAP queue 1, item 8: "
-            "fault plane + checkpoints)")
+def _fault_masks(fl: SatQFLConfig, R: int, N: int):
+    """(crash, straggler) (R, N) bool masks from the fault-site hash. A
+    crashed satellite is not transmitting at all, so it is never also a
+    straggler that round."""
+    crash = np.zeros((R, N), bool)
+    strag = np.zeros((R, N), bool)
+    if fl.crash_rate <= 0 and fl.straggler_rate <= 0:
+        return crash, strag
+    fs_seed = fl.fault_seed & 0xFFFFFFFF
+    for r in range(R):
+        for s in range(N):
+            if fl.crash_rate > 0:
+                crash[r, s] = _fault_hit(
+                    fault_site_u32(fs_seed, "crash", r, s), fl.crash_rate)
+            if fl.straggler_rate > 0:
+                strag[r, s] = _fault_hit(
+                    fault_site_u32(fs_seed, "strag", r, s),
+                    fl.straggler_rate)
+    strag &= ~crash
+    return crash, strag
+
+
+def _compile_faults(fl: SatQFLConfig, es: EdgeSchedule, crash, strag,
+                    fault_info, n_sats: int) -> FaultSchedule | None:
+    """Tabulate the fault-site hash over the compiled EdgeSchedule.
+
+    None when every fault rate is 0: the plan then carries no fault plane
+    and both executors run their fault-free paths. Async ISL arrival slots
+    are never flap-masked here (the retransmit ledger of
+    ``_async_send_schedule`` resolved their history); they carry the
+    surviving delivery's attempt index instead. The pad seed stays a
+    function of (edge, born): a flapped attempt drops the link BEFORE any
+    ciphertext moves, so the surviving attempt is that pad's first and
+    only exposure on the wire.
+    """
+    if (fl.link_flap_rate <= 0 and fl.crash_rate <= 0
+            and fl.straggler_rate <= 0 and fl.corrupt_rate <= 0):
+        return None
+    R, E_max = es.src.shape
+    fs_seed = fl.fault_seed & 0xFFFFFFFF
+    link_flap = np.zeros((R, E_max), bool)
+    tamper = np.zeros((R, E_max), np.uint32)
+    attempt = np.zeros((R, E_max), np.int32)
+    for r in range(R):
+        for j in range(int(es.ptr[r, -1])):
+            b = int(es.born[r, j])
+            d = int(es.dst[r, j])
+            a, bb = _edge_ids((int(es.src[r, j]),
+                               "gs" if d == GROUND else d), n_sats)
+            is_arrival = fl.mode == "async" and int(es.link[r, j]) == 0
+            if is_arrival and fault_info is not None:
+                attempt[r, j] = int(
+                    fault_info["attempt_of"][b, int(es.src[r, j])])
+            if fl.link_flap_rate > 0 and not is_arrival:
+                link_flap[r, j] = _fault_hit(
+                    fault_site_u32(fs_seed, "flap", b, a, bb),
+                    fl.link_flap_rate)
+            if fl.corrupt_rate > 0:
+                u = fault_site_u32(fs_seed, "tamper", b, a, bb)
+                if _fault_hit(u, fl.corrupt_rate):
+                    tamper[r, j] = np.uint32(u) | np.uint32(1)
+    zR = np.zeros((R,), np.int32)
+    fi = fault_info or {}
+    return FaultSchedule(
+        seed=fs_seed, n_sats=n_sats,
+        link_flap_rate=fl.link_flap_rate, crash_rate=fl.crash_rate,
+        straggler_rate=fl.straggler_rate, corrupt_rate=fl.corrupt_rate,
+        straggler_extra_s=fl.straggler_extra_s, max_retries=fl.max_retries,
+        retry_backoff_steps=fl.retry_backoff_steps,
+        crash=crash, straggler=strag, link_flap=link_flap, tamper=tamper,
+        attempt=attempt,
+        flap_events=fi.get("flap_events", zR),
+        retry_events=fi.get("retry_events", zR),
+        lost_events=fi.get("lost_events", zR),
+        recovered_events=fi.get("recovered_events", zR),
+        recovered=fi.get("recovered", np.zeros((R, n_sats), bool)))
 
 
 def compile_round_plan(trace: ConstellationTrace, fl: SatQFLConfig, *,
@@ -545,7 +824,6 @@ def compile_round_plan(trace: ConstellationTrace, fl: SatQFLConfig, *,
     defaults to False: a plan without a registry runs no BB84 (the trainer
     passes its own).
     """
-    check_supported(fl)
     t_idx = round_steps(trace, fl.n_rounds, round_stride)
     R, N = fl.n_rounds, trace.n_sats
 
@@ -578,16 +856,23 @@ def compile_round_plan(trace: ConstellationTrace, fl: SatQFLConfig, *,
     else:
         seeds = np.zeros((R, N), np.uint32)
 
+    # the fault plane's crash/straggler masks come before any schedule, so
+    # crashed satellites never enter a dispatch stage
+    crash, strag = _fault_masks(fl, R, N)
+    crash_arg = crash if crash.any() else None
+
     # async: the send/arrival plan first — the edge schedule's async
     # uplink stage IS the arrival schedule
-    arrivals = stale = None
+    arrivals = stale = fault_info = None
     if fl.mode == "async":
-        delay, deliver, tx_wait, arrivals, groups_r = _async_send_schedule(
-            fl, assignment, prim, trace, t_idx)
-    edges = _edge_schedule(fl, assignment, prim, keymgr, arrivals)
+        (delay, deliver, tx_wait, arrivals, groups_r,
+         fault_info) = _async_send_schedule(fl, assignment, prim, trace,
+                                            t_idx, crash_arg)
+    edges = _edge_schedule(fl, assignment, prim, keymgr, arrivals, crash_arg)
+    faults = _compile_faults(fl, edges, crash, strag, fault_info, N)
     if fl.mode == "async":
         stale = _staleness_schedule(fl, delay, deliver, tx_wait, arrivals,
-                                    groups_r, weights, edges, keymgr)
+                                    groups_r, weights, edges, keymgr, faults)
 
     return RoundPlan(
         n_rounds=R, n_sats=N,
@@ -597,4 +882,4 @@ def compile_round_plan(trace: ConstellationTrace, fl: SatQFLConfig, *,
         part_mask=part.astype(np.float32), hops=hops, latency_s=lat,
         window_wait_s=_window_waits(trace, t_idx, assignment, prim),
         group_size=group_size, seeds=seeds, weights=weights,
-        edges=edges, stale=stale)
+        edges=edges, stale=stale, faults=faults)

@@ -60,19 +60,38 @@ give bit-identical payloads and exactly equal accounting; QBER aborts
 surface per edge (``SecurityError.edges``, ``fl.on_qber_abort`` raise or
 drop) and a MAC mismatch raises.
 
+**Fault plane.** A config with a non-zero fault rate compiles a seeded
+:class:`~repro_torch.core.plan.FaultSchedule` into the plan: crashed
+satellites neither train nor send (a crashed main still relays, merges
+and feeds, riding the mains' training stage as a masked row), stragglers
+pay ``straggler_extra_s`` on their upload wall, a flapped link drops
+before any data moves, and a tampered payload flips its first wire word
+before the receiver's MAC, which rejects it in the seeded OTP kernel.
+Async retransmissions with backoff were resolved by the plan. Both
+executors drop at the same sites and report the same per-round
+:class:`FaultReport`; ``fl.on_fault='raise'`` surfaces a round's first
+fault as its ``FaultError`` subclass instead.
+
+**Checkpoints.** ``save_round_checkpoint`` / ``restore_round_checkpoint``
+(and ``run(ckpt_dir=...)``, which resumes from the latest) write the
+whole resume state after a round in the JAX package's file format
+(``repro_torch.checkpoint``); a resumed run ends bit-identical to the
+uninterrupted one, and the port resumes a run that the JAX trainer
+started (``convert.trainer_state_from_checkpoint``).
+
 Not ported yet, and refused with ``NotImplementedError`` rather than run
-weaker: fault injection and checkpoints (ROADMAP queue 1, item 8) and a
-custom ``sample_batch`` (item 13).
+weaker: a custom ``sample_batch`` (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 
 import numpy as np
 import torch
 
-from repro_torch import prng
+from repro_torch import convert, prng
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.constellation.topology import ConstellationTrace
 from repro_torch.core.comm import CommLog, CommModel
 from repro_torch.core.flconfig import SatQFLConfig
@@ -80,7 +99,7 @@ from repro_torch.core.localtrain import (
     make_batched_local_train, make_local_train, sample_batch_bounded,
     sample_local_batches,
 )
-from repro_torch.core.plan import RoundPlan, check_supported, compile_round_plan
+from repro_torch.core.plan import RoundPlan, compile_round_plan
 from repro_torch.device import resolve_device
 from repro_torch.kernels.otp_xor import ops as otp_ops
 from repro_torch.kernels.otp_xor.ref import as_storage
@@ -90,7 +109,9 @@ from repro_torch.nn.optim import (
 from repro_torch.nn.pytree import (tree_bytes, tree_leaves, tree_map,
                                    tree_weighted_sum)
 from repro_torch.quantum.teleport import teleport_params
-from repro_torch.security.errors import SecurityError
+from repro_torch.security.errors import (CorruptionError, LinkFlapError,
+                                         RetryExhaustedError, SatCrashError,
+                                         SecurityError)
 from repro_torch.security.fernet_lite import (
     TOKEN_OVERHEAD, InvalidToken, fernet_decrypt, fernet_decrypt_rows,
     fernet_encrypt, fernet_encrypt_rows,
@@ -151,6 +172,21 @@ def _frame_merge(frame, w: torch.Tensor):
 
 
 @dataclass
+class FaultReport:
+    """Per-round ledger of the injected-fault plane, tabulated from the
+    compiled schedule (so both executors report identical counts; the
+    parity checks hold their drops, merges and accounting to it)."""
+    round: int
+    crashes: int = 0        # satellites whose payload computer was down
+    stragglers: int = 0     # satellites paying straggler_extra_s
+    link_flaps: int = 0     # transmissions dropped before data moved
+    corruptions: int = 0    # payloads MAC-rejected at the receiver
+    retries: int = 0        # async retransmissions launched
+    lost: int = 0           # async updates lost after max_retries
+    recovered: int = 0      # async deliveries that needed ≥ 1 retry
+
+
+@dataclass
 class RoundMetrics:
     round: int
     server_val_loss: float = float("nan")
@@ -187,7 +223,6 @@ class SatQFLTrainer:
                  batched: bool = True, edge_batched: bool = True,
                  device=None):
         self.device = dev = resolve_device(device)
-        check_supported(fl)
         if sample_batch is not default_sample_batch:
             raise NotImplementedError(
                 "a custom sample_batch (the JAX trainer's per-client oracle "
@@ -239,6 +274,7 @@ class SatQFLTrainer:
         self.server_data = tree_map(lambda x: x.to(dev), server_data)
         self.log = CommLog()
         self.history: list[RoundMetrics] = []
+        self.fault_reports: list[FaultReport] = []
 
         self.keymgr = KeyManager(prng.PRNGKey(fl.seed + 7, dev),
                                  n_qkd_bits=fl.qkd_bits,
@@ -391,6 +427,65 @@ class SatQFLTrainer:
         return loss, (hit * valid).sum(dim=1) / cnt
 
     # ------------------------------------------------------------------
+    # fault plane (the seeded FaultSchedule riding on the compiled plan)
+    # ------------------------------------------------------------------
+    def _crashed(self, r: int, s: int) -> bool:
+        f = self.plan.faults
+        return f is not None and bool(f.crash[r, s])
+
+    def _strag_extra(self, r: int, s: int) -> float:
+        """Straggler wall-clock penalty of sender ``s`` at round ``r``,
+        added wherever that sender's transfer wall (or async transmit wait)
+        is recorded, delivered or not, on both executors."""
+        f = self.plan.faults
+        return f.straggler_extra(r, s) if f is not None else 0.0
+
+    def _fault_report_for(self, r: int) -> FaultReport:
+        """The round's fault ledger, tabulated from the compiled schedule."""
+        f, es = self.plan.faults, self.plan.edges
+        n_e = int(es.ptr[r, -1])
+        # a tampered slot is only DETECTED where data moved: QBER-aborted
+        # and flapped slots never reach the receiver's MAC
+        detected = (f.tamper[r, :n_e] != 0) & ~f.link_flap[r, :n_e] \
+            & ~es.abort[r, :n_e]
+        return FaultReport(
+            round=r, crashes=int(f.crash[r].sum()),
+            stragglers=int(f.straggler[r].sum()),
+            link_flaps=int(f.link_flap[r, :n_e].sum())
+            + int(f.flap_events[r]),
+            corruptions=int(detected.sum()),
+            retries=int(f.retry_events[r]), lost=int(f.lost_events[r]),
+            recovered=int(f.recovered_events[r]))
+
+    def _raise_round_faults(self, r: int):
+        """``on_fault='raise'``: surface the round's first fault as its
+        typed error BEFORE the engines degrade; precedence crash >
+        retry exhaustion > link flap > corruption (worst loss first)."""
+        f, es = self.plan.faults, self.plan.edges
+        if f.crash[r].any():
+            sites = [(r, int(s)) for s in np.where(f.crash[r])[0]]
+            raise SatCrashError(
+                f"satellite crash(es) at round {r}: {sites}", sites=sites)
+        if int(f.lost_events[r]) > 0:
+            raise RetryExhaustedError(
+                f"{int(f.lost_events[r])} async update(s) lost at round "
+                f"{r} after {self.fl.max_retries} retransmission(s)",
+                sites=[(r, "async")])
+        n_e = int(es.ptr[r, -1])
+        flaps = [es.edge_tuple(r, j) for j in range(n_e) if f.link_flap[r, j]]
+        if flaps or int(f.flap_events[r]) > 0:
+            raise LinkFlapError(
+                f"link flap(s) at round {r}: {flaps or 'async transmit'}",
+                sites=[(r, e) for e in flaps] or [(r, "async")])
+        tampers = [(r, es.edge_tuple(r, j)) for j in range(n_e)
+                   if (f.tamper[r, j] and not f.link_flap[r, j]
+                       and not es.abort[r, j])]
+        if tampers:
+            raise CorruptionError(
+                f"payload corruption at round {r}: MAC rejected "
+                f"{[e for _, e in tampers]}", sites=tampers)
+
+    # ------------------------------------------------------------------
     # secure exchange (Algorithm 2) — returns params as seen by receiver
     # ------------------------------------------------------------------
     def _transfer_s(self, nbytes: int, link: str, concurrent: int) -> float:
@@ -401,10 +496,19 @@ class SatQFLTrainer:
                   concurrent: int = 1):
         """Per-edge Algorithm 2 — the numerics/accounting oracle of the
         edge-batched plane. Returns (params_as_received, wall_s); params
-        is None when the edge QBER-aborted under on_qber_abort='drop'."""
+        is None when the edge QBER-aborted under on_qber_abort='drop', or
+        when an injected fault (link flap, payload tamper) dropped it."""
         fl = self.fl
+        fs = self.plan.faults
+        # async ISL arrivals are never flapped here: the plan's retransmit
+        # ledger resolved their flap/retry history
+        flapped = (fs is not None
+                   and not (fl.mode == "async" and link == "isl")
+                   and fs.flap_of(round_idx, edge))
         nbytes = tree_bytes(params)
         if fl.security == "none":
+            if flapped:
+                return None, 0.0    # the link dropped before data moved
             t = self._transfer_s(nbytes, link, concurrent)
             self.log.count_transfer(nbytes)   # wall time recorded per round
             return params, t
@@ -424,14 +528,23 @@ class SatQFLTrainer:
                 raise SecurityError(f"QBER abort on edge {ek.edge}",
                                     edges=[ek.edge])
             return None, t                    # drop: sat leaves C(t)
+        if flapped:
+            # establishment (when due) was paid; the payload never moved
+            return None, t
 
         t += self._transfer_s(nbytes, link, concurrent)
         self.log.count_transfer(nbytes)   # wall time recorded per round
         if fl.security == "teleport":
             return params, t + self._teleport(params)
         seed = int(ek.round_seed(round_idx))
-        received = self._secure_edge(params, seed, *ek.mac_keys(round_idx),
-                                     ek.edge)
+        tv = fs.tamper_of(round_idx, edge) if fs is not None else 0
+        received, ok = self._secure_edge(params, seed,
+                                         *ek.mac_keys(round_idx), tv)
+        # the compiled schedule, not a ~2^-31 tag collision, decides that a
+        # tampered payload is dropped
+        if not ok and not tv:
+            raise SecurityError(f"MAC mismatch on edge {ek.edge}",
+                                edges=[ek.edge])
         tc = 2 * self.comm.crypto_time(nbytes)
         if fl.security == "qkd_fernet":
             # control-plane metadata rides in a Fernet token keyed off the
@@ -444,6 +557,10 @@ class SatQFLTrainer:
                                     edges=[ek.edge])
             tc += 2 * self.comm.crypto_time(len(tok))
         self.log.add_security(tc)
+        if tv:
+            # corruption detected AFTER transfer and crypto were paid: the
+            # receiver discards the payload
+            return None, t + tc
         return received, t + tc
 
     def _teleport(self, params) -> float:
@@ -468,20 +585,30 @@ class SatQFLTrainer:
         return tt
 
     def _secure_edge(self, params, seed: int, mac_r: int, mac_s: int,
-                     edge: tuple):
+                     tamper: int = 0):
         """One edge's payload through OTP + MAC, as two launches of the
         fused kernel's seeded stream entry: the sender encrypts and tags
         its ciphertext, the receiver regenerates the pad from its own copy
-        of the seed, tags what it received and decrypts it."""
+        of the seed, tags what it received and decrypts it. ``tamper`` (0 =
+        clean; the fault plane sets it) flips the first received word
+        before the receiver's launch and is undone after decryption, as in
+        ``_secure_stage``. Returns (tree, MAC ok: True without
+        verification)."""
         msg = as_storage(tree_to_u32(params))
         layout = pad_layout(params)
         ct, tag = otp_ops.otp_xor_mac_stream_seeded(msg, seed, layout, mac_r,
                                                     mac_s)
+        if tamper:
+            flip = int(np.array([tamper], np.uint32).view(np.int32)[0])
+            ct = ct.clone()
+            ct[0] ^= flip
         plain, tag_rx = otp_ops.otp_xor_mac_stream_seeded(
             ct, seed, layout, mac_r, mac_s, tag_input=True)
-        if self.fl.verify_mac and not bool(_mac_rows_verify(tag, tag_rx)):
-            raise SecurityError(f"MAC mismatch on edge {edge}", edges=[edge])
-        return u32_to_tree(plain, params)
+        if tamper:
+            plain[0] ^= flip
+        ok = (not self.fl.verify_mac
+              or bool(_mac_rows_verify(tag, tag_rx)))
+        return u32_to_tree(plain, params), ok
 
     def _secure_stage(self, stacked, seeds, mac_r, mac_s, tamper):
         """ONE edge-batched Algorithm-2 dispatch over the frame's rows: the
@@ -531,13 +658,14 @@ class SatQFLTrainer:
         """
         fl = self.fl
         es = self.plan.edges
+        fs = self.plan.faults
         lo, hi = es.stage_bounds(r, stage)
         if hi - lo != len(edges):
             raise RuntimeError(f"plan and engine disagree on stage "
                                f"{(r, stage)}: {hi - lo} vs {len(edges)}")
         nbytes = self._row_nbytes
         tq = self.comm.qkd_time(fl.qkd_bits)
-        walls, delivered, fern = [], [], []
+        walls, delivered, tampv, fern = [], [], [], []
         for j, edge in enumerate(edges):
             e = es.edge_tuple(r, lo + j)
             c = int(es.conc[r, lo + j])
@@ -559,6 +687,14 @@ class SatQFLTrainer:
                     raise SecurityError(f"QBER abort on edge {e}", edges=[e])
                 walls.append(t)
                 delivered.append(False)
+                tampv.append(0)
+                continue
+            if fs is not None and fs.link_flap[r, lo + j]:
+                # injected flap: establishment (when due) was paid, the
+                # payload never moved; the row drops like a QBER abort
+                walls.append(t)
+                delivered.append(False)
+                tampv.append(0)
                 continue
             t += self._transfer_s(nbytes, link, c)
             self.log.count_transfer(nbytes)
@@ -571,7 +707,11 @@ class SatQFLTrainer:
                 tc += 2 * self.comm.crypto_time(TOKEN_OVERHEAD + len(meta))
             self.log.add_security(tc)
             walls.append(t + tc)
-            delivered.append(True)
+            # injected tamper: transfer and crypto were paid, then the
+            # receiver's MAC rejects the payload and the row is dropped
+            tv = int(fs.tamper[r, lo + j]) if fs is not None else 0
+            tampv.append(tv)
+            delivered.append(tv == 0)
 
         if fern:
             fkeys = [seed.to_bytes(4, "big") * 8 for _, seed, _ in fern]
@@ -588,15 +728,21 @@ class SatQFLTrainer:
                                     edges=bad)
 
         # device plane: one stage over the frame, row-aligned (rows without
-        # a delivered edge get seed 0 and pass through)
+        # a delivered or tampered edge get seed 0 and pass through)
         K = tree_leaves(stacked)[0].shape[0]
         seeds, mr, ms, tam = (np.zeros((K,), np.uint32) for _ in range(4))
         live_rows = []
         for j, row in enumerate(rows):
-            if delivered[j]:
+            if delivered[j] or tampv[j]:
+                # a tampered row rides the stage with its real keys and the
+                # injected wire word, so the receiver's MAC rejects it in
+                # the kernel; it stays out of live_rows (the schedule, not a
+                # ~2^-31 tag collision, decides that it drops)
                 seeds[row] = es.seed[r, lo + j]
                 mr[row] = es.mac_r[r, lo + j]
                 ms[row] = es.mac_s[r, lo + j]
+                tam[row] = tampv[j]
+            if delivered[j]:
                 live_rows.append((row, edges[j]))
         out, ok = self._secure_stage(stacked, seeds, mr, ms, tam)
         if ok is not None and live_rows:
@@ -625,11 +771,19 @@ class SatQFLTrainer:
         k = len(edges)
         conc = concurrents or [1] * k
         if self.fl.security == "none":
+            fs = self.plan.faults
+            flap = [False] * k
+            if fs is not None and fs.link_flap_rate > 0:
+                lo, _ = self.plan.edges.stage_bounds(r, stage)
+                flap = [bool(fs.link_flap[r, lo + j]) for j in range(k)]
             walls = []
-            for c in conc:
-                walls.append(self._transfer_s(self._row_nbytes, link, c))
-                self.log.count_transfer(self._row_nbytes)
-            return stacked, walls, [True] * k
+            for c, dropped in zip(conc, flap):
+                # a flapped link drops before any data moved: nothing counted
+                walls.append(0.0 if dropped
+                             else self._transfer_s(self._row_nbytes, link, c))
+                if not dropped:
+                    self.log.count_transfer(self._row_nbytes)
+            return stacked, walls, [not d for d in flap]
         if self.edge_batched:
             return self._exchange_rows_batched(stacked, rows, edges, r,
                                                stage, link, conc, borns)
@@ -657,13 +811,6 @@ class SatQFLTrainer:
     # ------------------------------------------------------------------
     def _weight_of(self, s: int) -> float:
         return float(self.plan.weights[s])
-
-    def _strag_extra(self, r: int, s: int) -> float:
-        """Straggler wall-clock penalty of sender ``s`` at round ``r``,
-        added wherever that sender's transfer wall (or async transmit wait)
-        is recorded. The one place the fault plane (ROADMAP queue 1, item
-        8) plugs into the trainer's accounting; without it, 0."""
-        return 0.0
 
     def _aggregate(self, models: list, ws: list):
         """FedAvg: normalized weighted sum; ws parallel to models."""
@@ -694,7 +841,7 @@ class SatQFLTrainer:
             theta, t = self._exchange(theta, (s, main), r, "isl")
             chain_wall += t + self._strag_extra(r, s)
             if theta is None:
-                theta = prev    # hop QBER-aborted: the chain reverts
+                theta = prev    # hop aborted or faulted: chain reverts
             else:
                 delivered += 1
         return theta, chain_wall, 0.0, delivered
@@ -709,7 +856,7 @@ class SatQFLTrainer:
                                   concurrent=max(len(secs), 1))
             up_walls.append(t + self._strag_extra(r, s))
             if p is None:
-                continue            # QBER abort: the update is dropped
+                continue            # QBER abort / injected fault: dropped
             collected.append(p)
             ws.append(self._weight_of(s))
         merged = (self._aggregate(collected, ws) if collected
@@ -896,9 +1043,14 @@ class SatQFLTrainer:
                 p_new, theta)
             act_rows = [g for g in range(n_chains) if active[g]]
             if self.fl.security == "none":
+                fs = self.plan.faults
                 dropped = []
                 for g in act_rows:
-                    chain_walls[g] += self._strag_extra(r, chains[g][hop])
+                    s = chains[g][hop]
+                    chain_walls[g] += self._strag_extra(r, s)
+                    if fs is not None and fs.flap_of(r, (s, mains[g])):
+                        dropped.append(g)   # the link flapped: nothing moved
+                        continue
                     chain_walls[g] += self.comm.isl_transfer(self._row_nbytes)
                     self.log.count_transfer(self._row_nbytes)
                     delivered += 1
@@ -912,8 +1064,8 @@ class SatQFLTrainer:
                 dropped = [g for g, d in zip(act_rows, ok) if not d]
                 delivered += int(sum(ok))
             if dropped:
-                # a QBER-aborted hop never reached the next hop: those
-                # chains revert to their pre-hop state
+                # an aborted or faulted hop never reached the next hop:
+                # those chains revert to their pre-hop state
                 idx = torch.tensor(dropped, device=self.device)
                 theta = tree_map(
                     lambda full, old: full.index_copy(0, idx, old[idx]),
@@ -1075,9 +1227,13 @@ class SatQFLTrainer:
     # ------------------------------------------------------------------
     def _round_qfl(self, r: int) -> int:
         """Flat FedAvg baseline: every satellite talks to the server over
-        its own feeder beam — transfers are PARALLEL (wall = max)."""
-        ids = list(range(self.n_sats))
+        its own feeder beam — transfers are PARALLEL (wall = max). Crashed
+        satellites sit out."""
+        ids = self.plan.live_sats(r)
         if self.batched:
+            if not ids:
+                self.log.add_wall(0.0)
+                return 0
             p, _ = self._train_group_batched(
                 ids, self._broadcast_global(self._frame), r)
             p, walls, delivered = self._exchange_rows(
@@ -1098,7 +1254,7 @@ class SatQFLTrainer:
             p, t = self._exchange(p, ("gs", s), r, "feeder")
             walls.append(t + self._strag_extra(r, s))
             if p is None:
-                continue            # QBER abort: the update is dropped
+                continue            # QBER abort / injected fault: dropped
             updates.append(p)
             ws.append(self._weight_of(s))
         self.log.add_wall(2 * max(walls))   # up + broadcast down
@@ -1126,13 +1282,15 @@ class SatQFLTrainer:
             group_walls.append(wall)
             group_waits.append(wait)
             participants += delivered
-            if fl.main_trains:
+            if fl.main_trains and not self._crashed(r, main):
+                # a crashed MAIN still relays, merges and feeds (the comms
+                # bus survives) but its payload computer skips training
                 merged, _ = self._train_sat(main, merged, r)
                 participants += 1
             merged, t = self._exchange(merged, (main, "gs"), r, "feeder")
             feeder_walls.append(t + self._strag_extra(r, main))
             if merged is None:
-                continue        # feeder QBER abort: the group is lost
+                continue        # feeder QBER abort / fault: group lost
             main_models[g] = merged
             main_ws[g] = (self._weight_of(main)
                           + sum(self._weight_of(s) for s in secs))
@@ -1164,8 +1322,23 @@ class SatQFLTrainer:
         merged, group_walls, group_waits, participants = \
             self._BATCHED_SCHEDULERS[self.fl.mode](self, r, mains, groups, mp)
         if self.fl.main_trains:
-            merged, _ = self._train_group_batched(mains, merged, r, pad_to=mp)
-            participants += len(mains)
+            live_m = [not self._crashed(r, m) for m in mains]
+            p_new, _ = self._train_group_batched(mains, merged, r,
+                                                 update_opt=live_m, pad_to=mp)
+            if all(live_m):
+                merged = p_new
+            else:
+                # crashed mains ride the stage as masked rows, so the frame
+                # and every other row's bits stay as they are: their
+                # optimizer slots are untouched and their merged params
+                # pass through untrained (the payload computer is down)
+                keep = torch.as_tensor(live_m + [False] * (mp - len(mains)),
+                                       device=self.device)
+                merged = tree_map(
+                    lambda new, old: torch.where(
+                        keep.reshape((-1,) + (1,) * (new.dim() - 1)),
+                        new, old), p_new, merged)
+            participants += int(sum(live_m))
         feeder_stage = int(self.plan.edges.n_stages[r]) - 1
         merged, feeder_walls, fdel = self._exchange_rows(
             merged, list(range(len(mains))), [(m, "gs") for m in mains], r,
@@ -1187,6 +1360,172 @@ class SatQFLTrainer:
         return participants
 
     # ------------------------------------------------------------------
+    # round-granularity checkpoints
+    # ------------------------------------------------------------------
+    # A checkpoint is (tree, metadata). The tree holds everything numeric
+    # whose bits the resume must reproduce: the global params, the
+    # teleport key, the optimizer slots and, for async, the staleness ring
+    # (batched) or the in-flight buffer payloads (oracle), whose
+    # variable-length structure the metadata's index lists describe so the
+    # load template can be rebuilt. Everything host-side (CommLog, history,
+    # fault reports, abort and establishment sets) rides in the metadata.
+    # The KeyManager is not saved: every plan edge is established at
+    # compile time from fl.seed, so rebuilding it is exact.
+
+    def _async_payload_like(self):
+        if self.fl.agg_security == "secagg":
+            return {"y": torch.zeros((self._q_words,), dtype=torch.int32,
+                                     device=self.device)}
+        return self.global_params
+
+    def _stack_opt_states(self):
+        return tree_map(lambda *xs: torch.stack(xs), *self.opt_states)
+
+    def _ckpt_ring(self):
+        """The float ring as a checkpoint holds it. Under secagg the JAX
+        trainer keeps an unused zero ring beside ``ring_y``; it is written
+        (and read back, then dropped) so both trainers' files hold the
+        same leaves."""
+        if self.fl.agg_security != "secagg":
+            return self._ring
+        D = self.plan.stale.D
+        return tree_map(lambda x: x.new_zeros((self.n_sats + 1, D)
+                                              + tuple(x.shape)),
+                        self.global_params)
+
+    def _ckpt_state(self):
+        fl = self.fl
+        dev = {"params": self.global_params, "key": self.key,
+               "opt": (self._opt_stacked if self.batched
+                       else self._stack_opt_states())}
+        pending_idx, outbox_idx = [], []
+        if fl.mode == "async":
+            if self.batched:
+                dev["ring"] = self._ckpt_ring()
+                if fl.agg_security == "secagg":
+                    dev["ring_y"] = self._ring_y
+            else:
+                pend, outp = [], []
+                # flattened in dict-insertion and list order; the index
+                # lists let restore rebuild the same iteration order (the
+                # buffer merge and the establishment accounting follow it)
+                for mn, lst in self.pending.items():
+                    for (p, s, b) in lst:
+                        pending_idx.append([int(mn), int(s), int(b)])
+                        pend.append(p)
+                for rd, lst in self._outbox.items():
+                    for (s, mn, b, p) in lst:
+                        outbox_idx.append([int(rd), int(s), int(mn), int(b)])
+                        outp.append(p)
+                dev["pending"] = pend
+                dev["outbox"] = outp
+        lg = self.log
+        meta = {
+            "round": len(self.history),
+            "config": asdict(fl),
+            "batched": self.batched,
+            "edge_batched": self.edge_batched,
+            "n_sats": self.n_sats,
+            "log": {
+                "transfer_s": lg.transfer_s, "wait_s": lg.wait_s,
+                "security_s": lg.security_s, "bytes_moved": lg.bytes_moved,
+                "n_transfers": lg.n_transfers,
+                "per_round": list(lg.per_round),
+                "round_details": lg.round_details,
+            },
+            "history": [asdict(h) for h in self.history],
+            "fault_reports": [asdict(f) for f in self.fault_reports],
+            "aborted_edges": [list(e) for e in self.aborted_edges],
+            "qkd_established": [list(e) for e in self._qkd_established],
+            "pending_idx": pending_idx,
+            "outbox_idx": outbox_idx,
+            "last_fidelity": self._last_fidelity,
+        }
+        return dev, meta
+
+    def _ckpt_template(self, meta):
+        fl = self.fl
+        like = {"params": self.global_params, "key": self.key,
+                "opt": (self._opt_stacked if self.batched
+                        else self._stack_opt_states())}
+        if fl.mode == "async":
+            if self.batched:
+                like["ring"] = self._ckpt_ring()
+                if fl.agg_security == "secagg":
+                    like["ring_y"] = self._ring_y
+            else:
+                pl = self._async_payload_like()
+                like["pending"] = [pl] * len(meta["pending_idx"])
+                like["outbox"] = [pl] * len(meta["outbox_idx"])
+        return like
+
+    def save_round_checkpoint(self, directory: str, keep: int = 3) -> str:
+        """Write the full resume state after ``len(self.history)`` rounds,
+        in the JAX trainer's file format; returns the file's path."""
+        dev, meta = self._ckpt_state()
+        return ckpt_io.CheckpointManager(directory, keep=keep).save(
+            meta["round"], convert.trainer_state_to_checkpoint(dev), meta)
+
+    def restore_round_checkpoint(self, directory: str,
+                                 step: int | None = None) -> int:
+        """Restore the trainer's state from a round checkpoint written by
+        this trainer or by the JAX package's; returns the number of
+        completed rounds. Running on from round r ends with the params,
+        history, fault reports and accounting of the uninterrupted run,
+        bit for bit on one device."""
+        step, meta = ckpt_io.read_metadata(directory, step)
+        if meta.get("config") != asdict(self.fl):
+            raise ValueError(
+                "checkpoint was written under a different SatQFLConfig; "
+                "resume with the identical configuration")
+        if (meta.get("batched") != self.batched
+                or meta.get("edge_batched") != self.edge_batched
+                or meta.get("n_sats") != self.n_sats):
+            raise ValueError(
+                "checkpoint execution-path fingerprint (batched/"
+                "edge_batched/n_sats) does not match this trainer")
+        leaves, step, meta = ckpt_io.read_leaves(directory, step)
+        dev = convert.trainer_state_from_checkpoint(
+            leaves, self._ckpt_template(meta))
+        fl = self.fl
+        self.global_params = dev["params"]
+        self.key = dev["key"]
+        if self.batched:
+            self._opt_stacked = dev["opt"]
+        else:
+            self.opt_states = [tree_map(lambda x, i=i: x[i], dev["opt"])
+                               for i in range(self.n_sats)]
+        if fl.mode == "async":
+            if self.batched:
+                if fl.agg_security == "secagg":
+                    self._ring_y = dev["ring_y"]
+                else:
+                    self._ring = dev["ring"]
+            else:
+                self.pending, self._outbox = {}, {}
+                for (mn, s, b), p in zip(meta["pending_idx"], dev["pending"]):
+                    self.pending.setdefault(int(mn), []).append(
+                        (p, int(s), int(b)))
+                for (rd, s, mn, b), p in zip(meta["outbox_idx"],
+                                             dev["outbox"]):
+                    self._outbox.setdefault(int(rd), []).append(
+                        (int(s), int(mn), int(b), p))
+        lg = meta["log"]
+        self.log = CommLog(
+            transfer_s=lg["transfer_s"], wait_s=lg["wait_s"],
+            security_s=lg["security_s"], bytes_moved=lg["bytes_moved"],
+            n_transfers=lg["n_transfers"], per_round=list(lg["per_round"]),
+            # msgpack turns tuples into lists: the cum tuple comes back
+            round_details=[{**d, "cum": tuple(d["cum"])}
+                           for d in lg["round_details"]])
+        self.history = [RoundMetrics(**h) for h in meta["history"]]
+        self.fault_reports = [FaultReport(**f) for f in meta["fault_reports"]]
+        self.aborted_edges = {tuple(e) for e in meta["aborted_edges"]}
+        self._qkd_established = {tuple(e) for e in meta["qkd_established"]}
+        self._last_fidelity = meta.get("last_fidelity")
+        return step
+
+    # ------------------------------------------------------------------
     # one round of Algorithm 1
     # ------------------------------------------------------------------
     def run_round(self, r: int) -> RoundMetrics:
@@ -1195,6 +1534,10 @@ class SatQFLTrainer:
             raise IndexError(
                 f"round {r} beyond the compiled plan ({self.plan.n_rounds} "
                 f"rounds); construct the trainer with fl.n_rounds >= {r + 1}")
+        if fl.on_fault == "raise" and self.plan.faults is not None:
+            # the round's injected faults surface as typed errors BEFORE
+            # the engines degrade (as on_qber_abort='raise')
+            self._raise_round_faults(r)
         m = RoundMetrics(round=r)
         round_t0 = self.log.total_s
         sec_t0 = self.log.security_s
@@ -1208,7 +1551,12 @@ class SatQFLTrainer:
             raise ValueError(fl.mode)
         m.comm_s = self.log.total_s - round_t0
         m.security_s = self.log.security_s - sec_t0
-        self.log.close_round()
+        fr = None
+        if self.plan.faults is not None:
+            fr = self._fault_report_for(r)
+            self.fault_reports.append(fr)
+        # round details carry a "faults" key only where a plane exists
+        self.log.close_round(faults=asdict(fr) if fr is not None else None)
         if self._last_fidelity is not None:
             m.teleport_fidelity = self._last_fidelity
 
@@ -1233,13 +1581,16 @@ class SatQFLTrainer:
 
     def run(self, ckpt_dir: str | None = None, ckpt_every: int = 1,
             ckpt_keep: int = 3) -> list[RoundMetrics]:
-        """Run all rounds of the plan. Checkpoints (``ckpt_dir`` every
-        ``ckpt_every`` rounds, keeping ``ckpt_keep``) are refused until
-        item 8 ports them."""
-        if ckpt_dir is not None:
-            raise NotImplementedError(
-                "round checkpoints are not ported yet (ROADMAP queue 1, "
-                "item 8: fault plane + checkpoints)")
-        for r in range(len(self.history), self.fl.n_rounds):
+        """Run the rounds of the plan; with ``ckpt_dir``, checkpoint every
+        ``ckpt_every`` rounds and after the last (keeping ``ckpt_keep``),
+        and first resume from the latest checkpoint the directory holds
+        (kill-and-restart safe)."""
+        start = len(self.history)
+        if ckpt_dir is not None and ckpt_io.latest_step(ckpt_dir) is not None:
+            start = self.restore_round_checkpoint(ckpt_dir)
+        for r in range(start, self.fl.n_rounds):
             self.run_round(r)
+            if ckpt_dir is not None and (
+                    (r + 1) % ckpt_every == 0 or r + 1 == self.fl.n_rounds):
+                self.save_round_checkpoint(ckpt_dir, keep=ckpt_keep)
         return self.history

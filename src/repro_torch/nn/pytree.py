@@ -33,6 +33,27 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(like, leaves: list):
+    """A tree of ``like``'s structure whose leaves are ``leaves``, taken in
+    ``tree_leaves`` order (dicts keep ``like``'s key order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            vals = {k: build(t[k]) for k in sorted(t)}
+            return {k: vals[k] for k in t}
+        if _is_namedtuple(t):
+            return type(t)(*[build(x) for x in t])
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out
+
+
 def tree_bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 

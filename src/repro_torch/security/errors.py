@@ -8,9 +8,9 @@ QBER aborts at key establishment and MAC verification failures.
 
 The ``FaultError`` family covers the *injected* LEO availability faults
 (link flaps, satellite crashes, payload corruption, retry exhaustion)
-compiled into the fault schedule; the port raises them once its fault
-plane lands (ROADMAP queue 1, item 8). They share the
-``ConnectionAbortedError`` base for the same drop-in reason, and carry
+compiled into the :class:`repro_torch.core.plan.FaultSchedule`. They
+share the ``ConnectionAbortedError`` base for the same drop-in reason,
+and carry
 ``sites`` — (round, edge-or-sat) tuples — instead of bare edges, because
 the same fault site must be reported identically by the per-client
 oracle and the batched executor. Under ``fl.on_fault='drop'`` (default)

@@ -897,3 +897,139 @@ def test_ssd_kernel_rejects_what_it_cannot_take(bad):
         ssd_ops.ssd_scan(x, dt, A, Bv, Cv,
                          chunk=256 if bad == "chunk256" else 128)
     assert ssd_ops.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# the fault plane and round checkpoints on the card
+# ---------------------------------------------------------------------------
+
+FAULTS = dict(link_flap_rate=0.3, crash_rate=0.2, straggler_rate=0.3,
+              corrupt_rate=0.3, fault_seed=11)
+
+
+def _fault_trainer(device, n_rounds=2, **kw):
+    from repro_torch.core import SatQFLConfig, SatQFLTrainer
+    cfg, api, trace, sats, server = _async_world()
+    fl = SatQFLConfig(**{"mode": "sim", "security": "qkd",
+                         "n_rounds": n_rounds, "local_steps": 2,
+                         "batch_size": 8, **FAULTS, **kw})
+    return SatQFLTrainer(cfg, api, fl, trace, sats, server, device=device)
+
+
+def _spy_macs(tr) -> list:
+    """Record (tamper word, seed, MAC ok) of every row the trainer's secure
+    stages and per-edge exchanges send through the seeded kernel."""
+    seen = []
+    stage, edge = tr._secure_stage, tr._secure_edge
+
+    def spy_stage(stacked, seeds, mac_r, mac_s, tamper):
+        out, ok = stage(stacked, seeds, mac_r, mac_s, tamper)
+        seen.extend(zip(tamper.tolist(), seeds.tolist(),
+                        ok.cpu().tolist()))
+        return out, ok
+
+    def spy_edge(params, seed, mac_r, mac_s, tamper=0):
+        out, ok = edge(params, seed, mac_r, mac_s, tamper)
+        seen.append((tamper, seed, ok))
+        return out, ok
+
+    tr._secure_stage, tr._secure_edge = spy_stage, spy_edge
+    return seen
+
+
+@pytest.mark.cuda
+def test_sim_qkd_faults_round_card_matches_cpu():
+    """sim under qkd with every fault rate set, on the card and on the
+    CPU: fault reports, delivered counts and accounting exactly equal,
+    metrics and params within 1e-4."""
+    _need_cuda()
+    tc, tp = _fault_trainer("cuda"), _fault_trainer("cpu")
+    tc.run()
+    tp.run()
+    assert tc.fault_reports == tp.fault_reports
+    assert sum(f.corruptions + f.link_flaps + f.crashes
+               for f in tc.fault_reports) > 0
+    assert tc.log.round_details == tp.log.round_details
+    for mc, mp in zip(tc.history, tp.history):
+        assert (mc.participants, mc.comm_s, mc.security_s) == \
+            (mp.participants, mp.comm_s, mp.security_s)
+        assert abs(mc.server_val_loss - mp.server_val_loss) <= 1e-4
+    for k, v in tc.global_params.items():
+        assert (v.cpu() - tp.global_params[k]).abs().max() <= 1e-4, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["rows", "stream"])
+def test_tampered_payload_fails_the_seeded_mac_on_card(entry):
+    """Both seeded entries on the card: a row (or stream) whose first
+    received word is flipped fails the receiver's MAC, every clean one
+    passes, and the flip is undone after decryption."""
+    _need_cuda()
+    tr = _fault_trainer("cuda")
+    rng = np.random.default_rng(4)
+    u32 = lambda n: rng.integers(1, 2 ** 32, n, dtype=np.uint64).astype(
+        np.uint32)
+    if entry == "rows":
+        K = 8
+        stacked = {k: v.expand((K,) + v.shape).clone() + torch.randn(
+            (K,) + v.shape, device="cuda") for k, v in
+            tr.global_params.items()}
+        tamper = np.zeros((K,), np.uint32)
+        tamper[[1, 4, 7]] = u32(3) | 1
+        out, ok = tr._secure_stage(stacked, u32(K), u32(K), u32(K), tamper)
+        assert ok.cpu().tolist() == [not t for t in tamper]
+    else:
+        stacked = tr.global_params
+        outs = [tr._secure_edge(stacked, int(s), int(r), int(m), t)
+                for s, r, m, t in zip(u32(2), u32(2), u32(2),
+                                      (0, int(u32(1)[0] | 1)))]
+        assert [ok for _, ok in outs] == [True, False]
+        out = outs[1][0]
+    for k in stacked:
+        assert torch.equal(out[k], stacked[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge_batched", [True, False])
+def test_tampered_rows_fail_the_mac_in_a_faulted_round(edge_batched):
+    """A faulted sim qkd run on the card: every tampered row the seeded
+    kernel sees fails the MAC, every other row with a pad seed passes."""
+    _need_cuda()
+    tr = _fault_trainer("cuda")
+    if not edge_batched:
+        tr.edge_batched = False
+    seen = _spy_macs(tr)
+    tr.run()
+    tampered = [ok for t, _, ok in seen if t]
+    clean = [ok for t, s, ok in seen if not t and s]
+    assert tampered and not any(tampered)
+    assert clean and all(clean)
+    assert len(tampered) == sum(f.corruptions for f in tr.fault_reports)
+
+
+@pytest.mark.cuda
+def test_kill_resume_bit_identical_on_card(tmp_path):
+    """async under qkd + secagg with faults and retries on the card: 4
+    rounds straight, and 2 rounds, a checkpoint, a fresh trainer restored
+    from it and 2 more, end with the same bits, history, fault reports
+    and accounting."""
+    _need_cuda()
+    kw = dict(mode="async", agg_security="secagg", max_retries=2,
+              n_rounds=4)
+    a = _fault_trainer("cuda", **kw)
+    a.run()
+    b = _fault_trainer("cuda", **kw)
+    for r in range(2):
+        b.run_round(r)
+    b.save_round_checkpoint(str(tmp_path))
+    c = _fault_trainer("cuda", **kw)
+    assert c.restore_round_checkpoint(str(tmp_path)) == 2
+    for r in range(2, 4):
+        c.run_round(r)
+    for k in a.global_params:
+        assert torch.equal(a.global_params[k].view(torch.int32),
+                           c.global_params[k].view(torch.int32)), k
+    assert [m.participants for m in a.history] == \
+        [m.participants for m in c.history]
+    assert a.fault_reports == c.fault_reports
+    assert a.log.round_details == c.log.round_details

@@ -110,15 +110,31 @@ def test_config_rejections_match(bad):
         SatQFLConfig(**bad)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(mode="async", crash_rate=0.1), "item 8"),
-    (dict(mode="async", link_flap_rate=0.1), "item 8"),
-    (dict(straggler_rate=0.1), "item 8"),
-    (dict(security="qkd", corrupt_rate=0.1), "item 8"),
-    (dict(crash_rate=0.1), "item 8"), (dict(link_flap_rate=0.1), "item 8")])
-def test_plan_refuses_what_is_not_ported(traces, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        compile_round_plan(traces[1], SatQFLConfig(n_rounds=2, **kw))
+FAULT_FIELDS = ("crash", "straggler", "link_flap", "tamper", "attempt",
+                "flap_events", "retry_events", "lost_events",
+                "recovered_events", "recovered")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mode="async", crash_rate=0.1), dict(mode="async", link_flap_rate=0.1),
+    dict(straggler_rate=0.1), dict(security="qkd", corrupt_rate=0.1),
+    dict(crash_rate=0.1), dict(link_flap_rate=0.1)])
+def test_plan_fault_schedule_matches_jax(traces, kw):
+    """Each single fault rate compiles, into the JAX plan's FaultSchedule
+    and the JAX plan's stages (crashed senders leave them) exactly."""
+    jt, _ = traces
+    fl = dict(n_rounds=2, fault_seed=5, **kw)
+    pj = jax_compile(jt, JaxConfig(**fl), with_seeds=False)
+    pt = compile_round_plan(_as_port_trace(jt), SatQFLConfig(**fl))
+    _assert_plans_equal(pt, pj)
+    assert pt.faults is not None
+    for f in FAULT_FIELDS:
+        a, b = getattr(pt.faults, f), getattr(pj.faults, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    for r in range(2):
+        assert pt.live_groups(r) == pj.live_groups(r)
+        assert pt.live_sats(r) == pj.live_sats(r)
 
 
 # every edge touching satellites 0-2 eavesdropped, as in

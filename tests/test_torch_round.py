@@ -21,6 +21,7 @@ JAX trainer, accounting exactly equal, and the trainer's teleport key
 stream bit-equal.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -69,11 +70,12 @@ def world():
     tXc, tyc, tserver = tdata.server_split(tX, ty)
     tsats = tdata.dirichlet_partition(tXc, tyc, N_SATS)
 
-    def port(mode, batched=True, **kw):
+    def port(mode, batched=True, run=True, **kw):
         tr = SatQFLTrainer(cfg, get_model(cfg),
                            SatQFLConfig(mode=mode, **{**FL, **kw}), trace,
                            tsats, tserver, batched=batched, device="cpu")
-        tr.run()
+        if run:
+            tr.run()
         return tr
 
     n_val = int(tserver["val"]["labels"].shape[0])
@@ -127,21 +129,39 @@ def test_batched_matches_per_client_oracle(world, mode):
                                        v.numpy(), atol=1e-6)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(mode="async", max_retries=2), "item 8"),
-    (dict(mode="seq", straggler_rate=0.1), "item 8"),
-    (dict(straggler_rate=0.2), "item 8"), (dict(crash_rate=0.1), "item 8")])
-def test_trainer_refuses_what_is_not_ported(world, kw, item):
+@pytest.mark.parametrize("kw", [
+    dict(mode="async", max_retries=2), dict(mode="seq", straggler_rate=0.1),
+    dict(straggler_rate=0.2), dict(crash_rate=0.1)])
+def test_trainer_runs_the_fault_plane(world, kw):
+    """Each fault option runs: one FaultReport a round where a rate is set
+    (none without), its crash and straggler counts the plan's, and each
+    round's details carry it."""
     _, port, _ = world
-    with pytest.raises(NotImplementedError, match=item):
-        port(**{"mode": "sim", **kw})
+    tr = port(**{"mode": "sim", **kw})
+    f = tr.plan.faults
+    assert len(tr.history) == FL["n_rounds"]
+    assert len(tr.fault_reports) == (0 if f is None else FL["n_rounds"])
+    for r, rep in enumerate(tr.fault_reports):
+        assert rep.round == r
+        assert (rep.crashes, rep.stragglers) == (int(f.crash[r].sum()),
+                                                 int(f.straggler[r].sum()))
+        assert tr.log.round_details[r]["faults"] == dataclasses.asdict(rep)
 
 
-def test_checkpoints_refused(world):
+def test_checkpoints_written(world, tmp_path):
+    """``run(ckpt_dir=...)`` writes a checkpoint after every round, and a
+    fresh trainer's ``run`` on that directory resumes at the end."""
+    from repro_torch.checkpoint import latest_step
     _, port, _ = world
-    tr = port("qfl", n_rounds=1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tr.run(ckpt_dir="unused")
+    tr = port("qfl", run=False)
+    assert tr.run(ckpt_dir=str(tmp_path)) == tr.history
+    assert latest_step(str(tmp_path)) == FL["n_rounds"]
+    assert sorted(os.listdir(tmp_path)) == [
+        f"step_{r + 1:08d}.msgpack" for r in range(FL["n_rounds"])]
+    fresh = port("qfl", run=False)
+    assert len(fresh.run(ckpt_dir=str(tmp_path))) == FL["n_rounds"]
+    for k, v in tr.global_params.items():
+        assert torch.equal(fresh.global_params[k], v)
 
 
 def test_trainer_signatures_match_jax():
@@ -162,13 +182,16 @@ def test_trainer_signatures_match_jax():
         assert got_run[name].default == p.default, name
 
 
-def test_checkpoint_options_refused_not_mistyped(world):
-    """A run written for ``repro`` with every checkpoint option gets the
-    NotImplementedError that names item 8, not a TypeError."""
+def test_checkpoint_options_accepted(world, tmp_path):
+    """A run written for ``repro`` with every checkpoint option runs: it
+    checkpoints every ``ckpt_every`` rounds and after the last, and
+    leaves exactly ``ckpt_keep`` checkpoints."""
+    from repro_torch.checkpoint import latest_step
     _, port, _ = world
-    tr = port("qfl", n_rounds=1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tr.run(ckpt_dir="unused", ckpt_every=2, ckpt_keep=1)
+    tr = port("qfl", run=False)
+    tr.run(ckpt_dir=str(tmp_path), ckpt_every=2, ckpt_keep=1)
+    assert os.listdir(tmp_path) == [f"step_{FL['n_rounds']:08d}.msgpack"]
+    assert latest_step(str(tmp_path)) == FL["n_rounds"]
 
 
 def test_custom_sampler_refused():
