@@ -13,15 +13,15 @@ all at once) and then:
    version on the card at nq ∈ {1, 2, 5, 8, 10, 13} and at the trainer's
    shapes (nq=8: ansatz G=64 clients × S=32 samples, encoding G=2048 ×
    S=1, the per-client oracle's G=1 and G=32, the shift rule's suffix
-   G=64 or 1 × S=512): max abs error ≤ 1e-5 on both planes, norms
-   preserved to 1e-5;
+   G=64 or 1 × S=512) and the in-graph round's (G=50, 1600 × 1, 50 ×
+   512): max abs error ≤ 1e-5 on both planes, norms preserved to 1e-5;
    and times the kernel, the plain version and one batched complex matmul
    with the kron'ed layer unitary (the library yardstick, used nowhere in
    the port) with CUDA events over back-to-back calls, and on the device
    alone (``_device_ms``: the calls queued behind a spin kernel);
 3. holds the single-gate kernel (#3) against its plain version (≤ 2e-6)
-   at the shift rule's insertion shapes (64, 32, 2^8) and (1, 32, 2^8) on
-   every qubit and
+   at the shift rule's insertion shapes (64, 32, 2^8), (1, 32, 2^8) and
+   the in-graph round's (50, 32, 2^8) on every qubit and
    with the stride past 2^13 (nq 14-20), and its backward (≤ 1e-5); holds
    the tiled layer (#2) (≤ 2e-6) at the JAX tests' forced small tiles and
    at nq 14, 16 and 20; times #3 at the insertion shape (a complex matmul
@@ -31,7 +31,8 @@ all at once) and then:
    library yardstick; then holds the layer backward kernel against its
    plain version (``ref.layer_vjp_ref`` on the same passes) and autograd
    through the plain forward (≤ 1e-5, non-unitary gates) at the trainer's
-   shapes (64, 32, 2^8) and (64, 32, 2^14), gate-only and state-only,
+   shapes (64, 32, 2^8) and (64, 32, 2^14) and the in-graph round's (50,
+   32, 2^8), gate-only and state-only,
    forced small tiles and 20 qubits, checks that two calls give the same
    bits, and times it (device and call, the plain version, the autograd
    replay it replaced) at (64, 32, 2^8) and (64, 32, 2^14);
@@ -42,7 +43,8 @@ all at once) and then:
    padded-convention wrappers; the seeded body (pads generated in the
    kernel from seeds and a pad layout, seeds 0 and 2^32 - 1 in every
    check) through the rows entry at the trainer's stage (64 rows of the
-   VQC tree: 62 words, 4 leaves), a mixed-width tree, a multi-block tree
+   VQC tree: 62 words, 4 leaves), the in-graph round's 50 rows of that
+   tree, a mixed-width tree, a multi-block tree
    (5 rows with a 16389-element leaf), (64, 2^20) as one f32 leaf and as
    one bf16 leaf of 2^21 elements, and through the stream entry at 62 and
    65,543 words; times both bodies and their plain versions at those
@@ -111,7 +113,32 @@ all at once) and then:
    share, the round's device-op count and the kernels that take the most
    device time, and the device ops of secagg's two pad calls (the send's
    masks, the merge's corrections) at that round's shapes;
-9. holds the sliding-window attention kernel (tensor cores in bf16, CUDA
+9. drives the in-graph round (``core.dist.make_fl_round``, ROADMAP item
+   10) at the same full width — phase 5's trace and shards, the 8-qubit
+   3-layer VQC, 10 local steps of batch 32, ``sgd(fl.lr)``, batches drawn
+   as the JAX launcher draws them, the plan compiled with seeds
+   (``DIST_PATHS``): sim under none, otp, otp_gather and secagg, qfl
+   under otp, seq under none and otp (4 hops), 2 rounds each; async
+   under none and otp, 4 rounds; sim under the shift rule, 1 round; sim
+   otp and async otp with ``plan.fault_mask`` at tests/test_faults.py's
+   rates (momentum, so frozen slots show), 2 rounds each. Every round
+   must launch exactly ``_dist_round_launches`` (per round, H = 4 hops in
+   seq and 1 otherwise: #1 40·H and the backward 60·H under autodiff;
+   130 of #1 and 960 of #3 under the shift rule; the seeded OTP rows
+   entry 2·H under otp, 2 under otp_gather, 0 otherwise) and no other
+   kernel, with a finite loss below 10. sim, qfl and seq end with every
+   row bit-equal to row 0; sim otp and otp_gather end bit-equal to sim;
+   ``mac_ok`` holds; otp_gather's sender and aggregator launches on the
+   last round's seeds equal the plain version bit for bit; one flipped
+   ciphertext word fails its row's MAC and no other, under the plain
+   verify and under the round's own check; sim secagg is within 1e-5 of
+   sim; the CPU is within 1e-4 of the card's runs of sim otp (2 rounds)
+   and async otp (4 rounds); crashed rows keep
+   their optimizer slots bit for bit. It profiles one warm sim otp round
+   and runs ``launch.train.main(["--fl", "--sats", "50", "--rounds",
+   "2", "--security", "otp"])`` with no ``--device``, which must run on
+   the card with its own launch counts;
+10. holds the sliding-window attention kernel (tensor cores in bf16, CUDA
    cores in f32) against its plain version
    (f32 ≤ 2e-5; bf16 within one bf16 step of each element, see
    ``_bf16_steps``) at hymba-1.5b's prefill shape (4, 2048,
@@ -122,21 +149,21 @@ all at once) and then:
    SDPA with a boolean band mask (the library yardstick, used nowhere in
    the port) at hymba's shape, where SDPA and the XLA path's bf16 softmax
    (``blocks._sdpa_core``) must fail the bf16 limit;
-10. holds the SSD scan kernel (one launch over (batch, head, chunk)
+11. holds the SSD scan kernel (one launch over (batch, head, chunk)
    blocks) against its plain version (y and state ≤ 3e-5 in f32; y within
    one bf16 step of each element in bf16, which the plain version fed dt
    rounded to bf16 must fail; the state ≤ 3e-5 in both) at hymba's (4,
    2048, 50 heads, P 64, N 16), mamba2-130m's N=128 in f32 and bf16, two
    B/C groups and S=1000 (chunk 125), and once from a given initial state;
    times it at hymba's shape and at mamba2-130m's N=128 in bf16;
-11. serves hymba-1.5b at full width and depth in bf16 from random weights:
+12. serves hymba-1.5b at full width and depth in bf16 from random weights:
    one ``make_prefill_step`` over 4 requests x 2048 tokens and
    ``generate`` for 4 requests of 16 prompt tokens and 32 new ones, the
    launch counts set to 0 just before each and read just after (the
    prefill must launch each kernel 32 times, 29 + 3 attention launches at
    W=1024 and W=0; decode neither), with prefill and decode rates, peak
    device memory and a profile of one prefill;
-12. cross-checks the serving path in f32 at full width: forward vs
+13. cross-checks the serving path in f32 at full width: forward vs
    decode-stepped logits over 64 tokens (rel < 2e-3), the full-depth
    prefill's next-token logits with the kernels vs their plain versions
    (rel ≤ 1e-4, TF32 off), and a 2-layer prefill of 2 x 256 tokens on
@@ -147,7 +174,9 @@ It prints one ``{"kernels": [...]}`` line (the layer backward as
 as the OTP kernel's seeded entries, each with its given-pad body under
 ``given_pad``), the card
 line, and as its last
-line ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
+line ``{"ok": true, "device": {...}}``. Each kernel's ``launches_by_path``
+covers the trainer paths, the in-graph paths (``dist_*``) and serving.
+Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result. Any failed phase exits
 non-zero.
 """
@@ -178,7 +207,9 @@ TOL = 1e-5
 CHECK_SHAPES = [(4, 3, 1), (4, 3, 2), (4, 3, 5), (4, 3, 8), (3, 2, 10),
                 (2, 2, 13), (40, 3, 8), (9, 7, 10),
                 (64, 32, 8), (2048, 1, 8), (1, 32, 8), (32, 1, 8),
-                (64, 512, 8), (1, 512, 8)]
+                (64, 512, 8), (1, 512, 8),
+                # the in-graph round's 50 rows: ansatz, encoding, shift
+                (50, 32, 8), (1600, 1, 8), (50, 512, 8)]
 MAIN_SHAPES = {"ansatz": (64, 32, 8), "encoding": (2048, 1, 8),
                "shift_suffix": (64, 512, 8)}
 
@@ -336,9 +367,10 @@ def phase_kernel(torch, ops, ref):
 
 
 # (G, S, nq, q): the shift rule's insertions at the trainer's shapes (every
-# qubit; batched executor K=64 and per-client oracle K=1), the stride
+# qubit; batched executor K=64, per-client oracle K=1 and the in-graph
+# round's K=50), the stride
 # inside a warp's segment (q < 5) and past 2^13 (q >= 13)
-GATE_SHAPES = [(K, 32, 8, q) for K in (64, 1) for q in range(8)] + [
+GATE_SHAPES = [(K, 32, 8, q) for K in (64, 1, 50) for q in range(8)] + [
     (4, 3, 5, 4), (3, 1, 1, 0), (2, 2, 14, 13), (1, 3, 15, 14),
     (1, 1, 16, 15), (2, 1, 16, 2), (1, 4, 20, 17), (1, 4, 20, 3)]
 # (G, S, nq, low_qubits, group_qubits, group_tile): the JAX tests' forced
@@ -489,13 +521,14 @@ def phase_gate_kernels(torch, ops, ref):
     return worst, grad_err, timings
 
 
-# (G, S, nq, low_qubits, group_qubits, noise): the trainer's ansatz and
-# 14-qubit layers, forced small tiles (several column passes) and the
+# (G, S, nq, low_qubits, group_qubits, noise): the trainer's ansatz (and
+# the in-graph round's 50 rows) and 14-qubit layers, forced small tiles (several column passes) and the
 # 20-qubit VQC's layer. The gates are non-unitary (complex noise of scale
 # 0.2) except at the 14-qubit trainer shape, which takes the trainer's
 # unitary gates: there 14 noisy gates grow the cotangents to tens, where
 # float32 rounding alone comes within a few ulps of 1e-5
-BWD_SHAPES = [(64, 32, 8, 13, 7, 0.2), (64, 32, 14, 13, 7, 0.0),
+BWD_SHAPES = [(64, 32, 8, 13, 7, 0.2), (50, 32, 8, 13, 7, 0.2),
+              (64, 32, 14, 13, 7, 0.0),
               (1, 1, 6, 3, 2, 0.2), (2, 3, 8, 4, 3, 0.2),
               (3, 2, 10, 13, 7, 0.2), (1, 4, 20, 13, 7, 0.2)]
 BWD_TIMED = {"ansatz": (64, 32, 8), "nq14_ansatz": (64, 32, 14)}
@@ -738,6 +771,7 @@ OTP_SEEDED_TREES = {
                        ("bfloat16", (5,)), ("int32", (7,))]),
     "bandwidth": (64, [("float32", (1 << 20,))]),
     "bandwidth_bf16": (64, [("bfloat16", (1 << 21,))]),
+    "ingraph": (50, "vqc"),         # the in-graph round's 50 rows
 }
 # the stream entry: the VQC tree (one edge, 62 words) and 65,543 words
 OTP_SEEDED_STREAMS = {
@@ -784,7 +818,8 @@ def phase_otp_seeded(torch, ops, ref):
     """The fused kernel's seeded body (pads generated in the kernel) vs its
     plain version (the pads expanded from the same layout by the port's
     threefry), bit for bit, in both tag modes with seeds 0 and 2^32 - 1,
-    at the trainer's stage, a mixed-width tree, a multi-block tree, (64,
+    at the trainer's stage, the in-graph round's 50 rows of the VQC
+    tree, a mixed-width tree, a multi-block tree, (64,
     2^20) as one f32 leaf and as one bf16 leaf of 2^21 elements, and the
     stream entry at 62 and 65,543 words; times each against its bound, and
     at the stage shape also the path it replaced (the pads built by
@@ -1677,6 +1712,313 @@ def _profile_secagg_pads(torch, tr):
 
 
 # --------------------------------------------------------------------------
+# The in-graph round (ROADMAP item 10): core.dist.make_fl_round over the
+# stacked satellite axis, and launch.train --fl
+# --------------------------------------------------------------------------
+
+SEQ_HOPS = 4
+# name -> the path: mode, security, rounds, and optionally the gradient
+# rule and the fault plane (plan.fault_mask at tests/test_faults.py's rates)
+DIST_PATHS = {
+    "dist_sim": dict(mode="sim", security="none", rounds=2),
+    "dist_sim_otp": dict(mode="sim", security="otp", rounds=2),
+    "dist_sim_otp_gather": dict(mode="sim", security="otp_gather", rounds=2),
+    "dist_sim_secagg": dict(mode="sim", security="secagg", rounds=2),
+    "dist_qfl_otp": dict(mode="qfl", security="otp", rounds=2),
+    "dist_seq": dict(mode="seq", security="none", rounds=2),
+    "dist_seq_otp": dict(mode="seq", security="otp", rounds=2),
+    # 4 rounds, so that buffered updates fold in
+    "dist_async": dict(mode="async", security="none", rounds=4),
+    "dist_async_otp": dict(mode="async", security="otp", rounds=4),
+    "dist_sim_shift": dict(mode="sim", security="none", rounds=1,
+                           grad_method="param_shift"),
+    "dist_sim_otp_faults": dict(mode="sim", security="otp", rounds=2,
+                                faults=True),
+    "dist_async_otp_faults": dict(mode="async", security="otp", rounds=2,
+                                  faults=True),
+}
+
+
+def _dist_round_launches(spec: dict, nq: int, L: int, E: int) -> dict:
+    """The launches one in-graph round must make, and no other kernel:
+    under autodiff (1 + L) layers of #1 and L backward layers of
+    2·len(bwd_passes) launches a local step, under the shift rule 1 + L +
+    L² layers of #1 and 4·nq·L single gates; the seeded OTP rows entry
+    twice an otp exchange and twice a gather; H = seq_hops exchanges (and
+    trainings) in seq, else 1."""
+    from repro_torch.kernels.statevec_gate import ops
+    H = SEQ_HOPS if spec["mode"] == "seq" else 1
+    want = {}
+    if spec.get("grad_method") == "param_shift":
+        want["statevec_gate_layer"] = E * (1 + L + L * L)
+        want["statevec_gate_1q"] = E * 4 * nq * L
+    else:
+        want["statevec_gate_layer"] = E * (1 + L) * H
+        want["statevec_gate_layer_bwd"] = (E * L * 2
+                                           * len(ops.bwd_passes(nq)) * H)
+    want["otp_xor_mac_edges_seeded"] = {"otp": 2 * H, "otp_gather": 2}.get(
+        spec["security"], 0)
+    return want
+
+
+def _dist_batches(torch, np, sats, rng, steps: int, B: int, dev) -> dict:
+    """One round's stacked batches as the JAX launcher draws them: numpy
+    ``rng.integers`` indices into each satellite's rows."""
+    per = min(len(s["features"]) for s in sats)
+    idx = torch.from_numpy(rng.integers(0, per, (len(sats), steps, B))).to(
+        dev)
+    return {k: torch.stack([s[k].to(dev)[i] for s, i in zip(sats, idx)])
+            for k in ("features", "labels")}
+
+
+def _dist_run(torch, np, name, spec, trace, sats, dev, on_round=None):
+    """Run one in-graph path on ``dev`` from the paper's scenario: (final
+    state, per-round records, (cfg, api, fl, round_fn, plan)).
+    ``on_round(r)`` is called just before round r and ``on_round(r, record,
+    state, state before the round, fault mask)`` just after it."""
+    from repro_torch import prng
+    from repro_torch.core import SatQFLConfig, compile_round_plan
+    from repro_torch.core.dist import fl_init_state, make_fl_round
+    from repro_torch.models import get_config, get_model
+    from repro_torch.nn.optim import momentum, sgd
+    cfg = get_config("vqc-satqfl")
+    api = get_model(cfg)
+    n = len(sats)
+    fl = SatQFLConfig(mode=spec["mode"], n_rounds=spec["rounds"],
+                      local_steps=10, batch_size=32,
+                      grad_method=spec.get("grad_method", "autodiff"),
+                      security="qkd", **(FAULTS if spec.get("faults")
+                                         else {}))
+    # the fault paths take momentum, so that frozen slots are visible
+    opt = (momentum if spec.get("faults") else sgd)(fl.lr)
+    plan = compile_round_plan(trace, fl,
+                              sample_counts=[len(s["labels"]) for s in sats],
+                              device=dev)
+    state = fl_init_state(cfg, api, opt, n, prng.PRNGKey(0, dev))
+    rf = make_fl_round(cfg, api, fl, opt, n, security=spec["security"],
+                       seq_hops=SEQ_HOPS)
+    steps = fl.local_steps * (SEQ_HOPS if fl.mode == "seq" else 1)
+    rng = np.random.default_rng(0)
+    records = []
+    for r in range(fl.n_rounds):
+        batches = _dist_batches(torch, np, sats, rng, steps, fl.batch_size,
+                                dev)
+        mask, seeds, weights = plan.dist_inputs(r, dev)
+        fault = plan.fault_mask(r, dev) if spec.get("faults") else None
+        if on_round is not None:
+            on_round(r)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prev = state
+        state, m = rf(state, batches, mask, seeds, weights, fault)
+        loss = float(m["loss"])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        rec = {"round": r, "seconds": time.perf_counter() - t0,
+               "loss": loss, "participants": int(mask.sum()),
+               "crashed": (None if fault is None
+                           else int((fault == 0).sum()))}
+        if "mac_ok" in m:
+            rec["mac_ok"] = bool(m["mac_ok"])
+        records.append(rec)
+        if on_round is not None:
+            on_round(r, rec, state, prev, fault)
+    return state, records, (cfg, api, fl, rf, plan)
+
+
+def _rows_equal_row0(torch, params) -> bool:
+    return all(torch.equal(x, x[:1].expand(x.shape))
+               for x in params.values())
+
+
+def _leaf_gap(a, b) -> float:
+    return max((x.float().cpu() - y.float().cpu()).abs().max().item()
+               for x, y in zip(a.values(), b.values()))
+
+
+def phase_in_graph(torch, kops, trace, sats):
+    """The in-graph engine at full width (``DIST_PATHS``): the paper's
+    50-satellite scenario of phase 5, the 8-qubit 3-layer VQC, 10 local
+    steps of batch 32, ``sgd(fl.lr)`` (momentum on the fault paths), the
+    plan compiled with seeds, batches drawn as the JAX launcher draws
+    them. Every launch count is set to 0 just before each round and read
+    just after: each round must launch exactly ``_dist_round_launches``
+    and no other kernel. Then the checks of the engine: finite losses
+    below 10, synchronized rows, otp and otp_gather bit-equal to the
+    unsecured round, ``mac_ok``, otp_gather's two launches bit-equal to
+    the plain version on the round's seeds, a flipped ciphertext word
+    caught by its row's MAC and no other (plain verify and the round's
+    own check), secagg within 1e-5 of plain, the CPU within 1e-4 of the
+    card's runs of sim and async otp, frozen slots of crashed rows;
+    one profiled warm sim otp round; and ``launch.train.main`` with no
+    ``--device`` on the card."""
+    import numpy as np
+    from repro_torch.core import dist
+    from repro_torch.nn.pytree import tree_leaves
+    from repro_torch.kernels.otp_xor import ref as otp_ref
+    from repro_torch.security.mac import mac_verify_rows
+    from repro_torch.security.otp import (pad_layout, tree_to_u32_rows,
+                                          u32_to_tree_rows)
+    dev = torch.device("cuda")
+    launches, report, finals, contexts = {}, {}, {}, {}
+    nq, L, E = 8, 3, 10
+    for name, spec in DIST_PATHS.items():
+        want = _dist_round_launches(spec, nq, L, E)
+        counts = {}
+
+        def on_round(r, rec=None, state=None, prev=None, fault=None,
+                     want=want, counts=counts, name=name):
+            if rec is None:                 # just before the round
+                _reset(kops)
+                return
+            got = _counts(kops)
+            rec["launches"] = {k: v for k, v in got.items() if v}
+            for k, v in got.items():
+                counts[k] = counts.get(k, 0) + v
+                if v != want.get(k, 0):
+                    raise PhaseError(f"{name} round {r}: {v} launches of "
+                                     f"{k}, the table says "
+                                     f"{want.get(k, 0)}")
+            if not (math.isfinite(rec["loss"]) and rec["loss"] < 10.0):
+                raise PhaseError(f"{name} round {r}: loss {rec['loss']}")
+            if rec.get("mac_ok") is False:
+                raise PhaseError(f"{name} round {r}: mac_ok false")
+            if fault is not None:
+                rows = (fault == 0).nonzero().flatten()
+                for new, old in zip(tree_leaves(state.opt_slots),
+                                    tree_leaves(prev.opt_slots)):
+                    if not torch.equal(new[rows], old[rows]):
+                        raise PhaseError(f"{name} round {r}: a crashed "
+                                         f"row's optimizer slot moved")
+                rec["frozen_rows"] = int((fault == 0).sum())
+            print(f"dist {name} " + json.dumps(rec))
+
+        state, records, contexts[name] = _dist_run(torch, np, name, spec,
+                                                   trace, sats, dev,
+                                                   on_round)
+        if spec["mode"] in ("sim", "qfl", "seq") and not _rows_equal_row0(
+                torch, state.params):
+            raise PhaseError(f"{name}: rows differ from row 0 after the "
+                             f"aggregate")
+        if spec.get("faults") and not sum(x["crashed"] for x in records):
+            raise PhaseError(f"{name}: the fault plane crashed no row")
+        launches[name] = counts
+        finals[name] = state
+        report[name] = records
+        print(f"dist {name}: seconds per round "
+              f"{[x['seconds'] for x in records]}")
+    for name in ("dist_sim_otp", "dist_sim_otp_gather"):
+        if not all(torch.equal(a, b) for a, b in zip(
+                finals[name].params.values(),
+                finals["dist_sim"].params.values())):
+            raise PhaseError(f"{name} is not bit-equal to dist_sim")
+    gap = _leaf_gap(finals["dist_sim_secagg"].params,
+                    finals["dist_sim"].params)
+    print(f"dist: sim otp and otp_gather bit-equal to sim on the card; "
+          f"secagg within {gap:.3e} of sim")
+    if gap > 1e-5:
+        raise PhaseError(f"dist_sim_secagg is {gap} from dist_sim")
+    # outside round_fn: otp_gather's two launches on the last round's
+    # inputs against the plain version bit for bit, and one ciphertext word
+    # flipped in transit caught by the plain verify and by the round's own
+    # check (the aggregator's tags against the sender's), in that row alone
+    _, seeds_r, _ = contexts["dist_sim_otp_gather"][-1].dist_inputs(1, dev)
+    s_r = dist._round_seeds(seeds_r, 1, dist._OTP_MIX)
+    rk, sk = dist._mac_keys(s_r)
+    p = finals["dist_sim"].params
+    ct, tags = dist._gather_send(p, s_r)
+    moved, tags_rx = dist._gather_receive(ct, s_r)
+    layout = pad_layout(p, lead=1)
+    want_ct, want_tags = otp_ref.otp_xor_mac_rows_seeded_ref(
+        otp_ref.as_storage(tree_to_u32_rows(p)), otp_ref.as_storage(s_r),
+        layout, otp_ref.as_storage(rk), otp_ref.as_storage(sk))
+    want_pt, want_rx = otp_ref.otp_xor_mac_rows_seeded_ref(
+        want_ct, otp_ref.as_storage(s_r), layout, otp_ref.as_storage(rk),
+        otp_ref.as_storage(sk), True)
+    gap = _otp_gap(torch, (otp_ref.as_storage(tree_to_u32_rows(ct)), tags,
+                           otp_ref.as_storage(tree_to_u32_rows(moved)),
+                           tags_rx), (want_ct, want_tags, want_pt, want_rx))
+    print(f"dist otp_gather launches on the round's inputs (G={len(sats)}): "
+          f"max_abs_err={gap} against the plain version")
+    if gap or not torch.equal(tags, tags_rx):
+        raise PhaseError(f"otp_gather's launches disagree with the plain "
+                         f"version ({gap}) or with each other")
+    rows = tree_to_u32_rows(ct)
+    clean = mac_verify_rows(rows, tags, rk, sk)
+    rows[7, 11] ^= 1 << 13
+    flipped = mac_verify_rows(rows, tags, rk, sk).tolist()
+    _, tags_bad = dist._gather_receive(u32_to_tree_rows(rows, ct), s_r)
+    caught = (tags_bad == tags).tolist()
+    healthy = [i != 7 for i in range(len(sats))]
+    if not (bool(clean.all()) and flipped == healthy and caught == healthy):
+        raise PhaseError(f"the flipped word was not caught in row 7 alone: "
+                         f"plain verify {flipped}, the round's check "
+                         f"{caught}")
+    print("dist: one flipped ciphertext word fails row 7's MAC and no "
+          "other row's, under the plain verify and the round's own check")
+    # the CPU (plain path) against the card's runs above
+    cpu_sats = [{k: v.cpu() for k, v in s.items()} for s in sats]
+    for name in ("dist_sim_otp", "dist_async_otp"):
+        spec = DIST_PATHS[name]
+        t0 = time.perf_counter()
+        sp, rp, _ = _dist_run(torch, np, name, spec, trace, cpu_sats,
+                              torch.device("cpu"))
+        sc, rc = finals[name], report[name]
+        gap = max(_leaf_gap(sc.params, sp.params),
+                  _leaf_gap(sc.stale, sp.stale),
+                  max(abs(a["loss"] - b["loss"]) for a, b in zip(rc, rp)))
+        print(f"dist cross-device {name}: max gap {gap:.3e} over "
+              f"{spec['rounds']} rounds ({time.perf_counter() - t0:.1f} s "
+              f"on the cpu)")
+        if gap > 1e-4:
+            raise PhaseError(f"{name}: cuda and cpu differ by {gap}")
+    # one warm sim otp round under the profiler
+    cfg, api, fl, rf, plan = contexts["dist_sim_otp"]
+    state = finals["dist_sim_otp"]
+    batches = _dist_batches(torch, np, sats, np.random.default_rng(1),
+                            fl.local_steps, fl.batch_size, dev)
+    mask, seeds_r, weights = plan.dist_inputs(1, dev)
+    rf(state, batches, mask, seeds_r, weights)
+    prof = _device_profile(torch, lambda: rf(state, batches, mask, seeds_r,
+                                             weights))
+    print("profile dist_sim_otp: " + (json.dumps(prof) if prof else
+                                      "not measured (the profiler recorded "
+                                      "no device time)"))
+    if prof:
+        print(f"profile dist_sim_otp: {prof['device_ops']} device ops in one "
+              f"warm round, {prof['device_busy_share']:.3f} busy")
+    report["profile_dist_sim_otp"] = prof
+    # the launcher's --fl path, with no --device: it must run on the card
+    from repro_torch.launch import train
+    from repro_torch.kernels.statevec_gate import ops
+    argv = ["--fl", "--sats", "50", "--rounds", "2", "--security", "otp"]
+    _reset(kops)
+    t0 = time.perf_counter()
+    out = train.main(argv)
+    torch.cuda.synchronize()
+    got = _counts(kops)
+    # the launcher's defaults: 6 qubits, 2 layers, 5 local steps, and one
+    # evaluation (1 + L layers) a round
+    q6, L2, E5, R = 6, 2, 5, 2
+    want = {"statevec_gate_layer": R * (E5 * (1 + L2) + 1 + L2),
+            "statevec_gate_layer_bwd": R * E5 * L2 * 2 * len(
+                ops.bwd_passes(q6)),
+            "otp_xor_mac_edges_seeded": 2 * R}
+    for k, v in got.items():
+        if v != want.get(k, 0):
+            raise PhaseError(f"launch.train --fl: {v} launches of {k}, "
+                             f"expected {want.get(k, 0)}")
+    if out.params["theta"].device.type != "cuda":
+        raise PhaseError("launch.train --fl without --device left the card")
+    launches["dist_launch_train"] = got
+    print(f"dist launch.train {' '.join(argv)}: on "
+          f"{out.params['theta'].device}, {time.perf_counter() - t0:.1f} s, "
+          f"launches {json.dumps({k: v for k, v in got.items() if v})}")
+    return launches, report
+
+
+# --------------------------------------------------------------------------
 # The serving path: hymba-1.5b with kernels #6 (swa_attention) and
 # #7 (ssd_scan)
 # --------------------------------------------------------------------------
@@ -2172,6 +2514,8 @@ def main() -> int:
     phase_shift_step(torch, kops, ref)
     phase_cross_device(torch, trace, sats, server)
     phase_profile(torch, trace, sats, server)
+    dist_launches, _ = phase_in_graph(torch, kops, trace, sats)
+    launches.update(dist_launches)
     del trace, sats, server
     torch.cuda.empty_cache()
     swa_err, swa_steps, swa_timings = phase_swa_kernel(torch, swa_ops,

@@ -4,8 +4,9 @@ from repro_torch.constellation.orbits import (
     walker_constellation,
 )
 from repro_torch.constellation.topology import (
-    ConstellationTrace, build_trace, isl_routes_batched, pairwise_distances,
-    round_steps,
+    ConstellationTrace, access_windows, assign_secondaries, build_trace,
+    isl_routes, isl_routes_batched, pairwise_distances, participation_series,
+    partition_roles, round_steps,
 )
 from repro_torch.constellation.visibility import (
     elevation_angle, sat_ground_access, sat_sat_access,
@@ -13,6 +14,7 @@ from repro_torch.constellation.visibility import (
 
 __all__ = ["EARTH_RADIUS_KM", "GROUND_STATIONS", "ground_station_eci",
            "propagate", "walker_constellation", "ConstellationTrace",
-           "build_trace", "isl_routes_batched", "pairwise_distances",
-           "round_steps", "elevation_angle",
+           "build_trace", "partition_roles", "access_windows",
+           "participation_series", "assign_secondaries", "isl_routes",
+           "isl_routes_batched", "pairwise_distances", "round_steps", "elevation_angle",
            "sat_ground_access", "sat_sat_access"]

@@ -6,6 +6,10 @@ FL scheduler consumes.
   S_s(t) = the rest, reachable only over ISLs
   P_i(t) = 1 iff a path to a ground station exists within (H_max, L_max)
 
+plus the scheduling artifacts the FL core consumes: per-round
+participation masks, the secondary→primary assignment, and access windows
+(t_start, t_end).
+
 Orbits and access are computed in torch float32 on the requested device;
 the trace itself is numpy, like the JAX package's, so the plan compiler
 runs the same host code on either package's trace.
@@ -67,6 +71,41 @@ def build_trace(n_sats: int = 50, n_planes: int = 10,
         gs_names=names, n_sats=n_sats)
 
 
+def partition_roles(trace: ConstellationTrace, t_idx: int):
+    """S_p(t), S_s(t): primaries see any ground station at step t."""
+    vis = trace.sg_access[:, :, t_idx].any(axis=1)
+    return np.where(vis)[0], np.where(~vis)[0]
+
+
+def assign_secondaries(trace: ConstellationTrace, t_idx: int):
+    """Each secondary's nearest ISL-visible primary (the paper's {SecSat}
+    per MainSat grouping): ({primary: [secondaries]}, [unreachable])."""
+    primaries, secondaries = partition_roles(trace, t_idx)
+    pos = trace.sat_pos[:, t_idx]
+    isl = trace.ss_access[:, :, t_idx]
+    assign = {int(p): [] for p in primaries}
+    unreachable = []
+    for s in secondaries:
+        cand = [p for p in primaries if isl[s, p]]
+        if not cand:
+            unreachable.append(int(s))
+            continue
+        dists = [np.linalg.norm(pos[s] - pos[p]) for p in cand]
+        assign[int(cand[int(np.argmin(dists))])].append(int(s))
+    return assign, unreachable
+
+
+def isl_routes(trace: ConstellationTrace, t_idx: int, h_max: int = 4,
+               l_max_s: float = 0.25):
+    """P_i(t) at one trace step: ``isl_routes_batched`` at that step.
+    Returns (participation (n,) bool, hops (n,), latency_s (n,)), primaries
+    at 0 hops, inf marking unreachable satellites. (The JAX package's
+    function is a BFS over the same graph; where L_max binds on a tie the
+    relaxation can reach a satellite the BFS's visiting order missed.)"""
+    part, hops, lat = isl_routes_batched(trace, [t_idx], h_max, l_max_s)
+    return part[0], hops[0], lat[0]
+
+
 def pairwise_distances(pos: np.ndarray) -> np.ndarray:
     """Batched ‖p_i − p_j‖ (..., n, n) via the Gram expansion, in f64
     (the expansion cancels catastrophically in f32 at LEO radii)."""
@@ -102,6 +141,34 @@ def isl_routes_batched(trace: ConstellationTrace, t_idxs,
         lat = np.where(ok, best, lat)
         hops = np.where(ok, float(h), hops)
     return np.isfinite(hops), hops, lat
+
+
+def access_windows(trace: ConstellationTrace, sat: int,
+                   other: int | None = None, ground: int | None = None):
+    """(t_start, t_end) intervals in seconds of sat↔sat, sat↔ground or (by
+    default) sat↔any-ground access — the accessTimes input of Algorithm
+    1."""
+    if other is not None:
+        series = trace.ss_access[sat, other]
+    elif ground is not None:
+        series = trace.sg_access[sat, ground]
+    else:
+        series = trace.sg_access[sat].any(axis=0)
+    t = trace.times_s
+    edges = np.diff(series.astype(np.int8), prepend=0, append=0)
+    starts = np.where(edges == 1)[0]
+    ends = np.where(edges == -1)[0] - 1
+    return [(float(t[a]), float(t[min(b, len(t) - 1)]))
+            for a, b in zip(starts, ends)]
+
+
+def participation_series(trace: ConstellationTrace, n_rounds: int,
+                         h_max: int = 4, l_max_s: float = 0.25,
+                         round_stride: int | None = None) -> np.ndarray:
+    """(n_rounds, n) bool: P_i at the trace step of each FL round (rounds
+    spread across the trace, stride T / n_rounds by default)."""
+    t_idxs = round_steps(trace, n_rounds, round_stride)
+    return isl_routes_batched(trace, t_idxs, h_max, l_max_s)[0]
 
 
 def round_steps(trace: ConstellationTrace, n_rounds: int,

@@ -303,6 +303,15 @@ class RoundPlan:
     def participants(self, r: int) -> int:
         return int(self.part_mask[r].sum())
 
+    def dist_inputs(self, r: int, device=None):
+        """(part_mask float32, seeds, weights float32) of round r for
+        ``core.dist.make_fl_round``, on ``device``; the seeds are u32
+        values in int64 words, the port's u32 convention."""
+        dev = resolve_device(device)
+        return (torch.from_numpy(self.part_mask[r].astype(np.float32)).to(dev),
+                torch.from_numpy(self.seeds[r].astype(np.int64)).to(dev),
+                torch.from_numpy(self.weights.astype(np.float32)).to(dev))
+
 
 def _nearest_primary_assignment(pos, isl, prim):
     """Nearest ISL-visible primary per secondary: pos (R, N, 3), isl
@@ -811,7 +820,7 @@ def _compile_faults(fl: SatQFLConfig, es: EdgeSchedule, crash, strag,
 def compile_round_plan(trace: ConstellationTrace, fl: SatQFLConfig, *,
                        sample_counts=None, keymgr: KeyManager | None = None,
                        round_stride: int | None = None,
-                       with_seeds: bool = False, device=None) -> RoundPlan:
+                       with_seeds: bool = True, device=None) -> RoundPlan:
     """Compile trace + config into a :class:`RoundPlan`.
 
     sample_counts — per-satellite dataset sizes for FedAvg weighting
@@ -820,9 +829,9 @@ def compile_round_plan(trace: ConstellationTrace, fl: SatQFLConfig, *,
     with_seeds — also fill the per-satellite ``seeds``. Where no registry
     is given, one is made from ``fl.seed`` on ``device`` for
     ``with_seeds`` and for secagg (whose pairwise mask shares need one even
-    under ``security="none"``). Unlike the JAX package, ``with_seeds``
-    defaults to False: a plan without a registry runs no BB84 (the trainer
-    passes its own).
+    under ``security="none"``). ``with_seeds=False`` without a registry
+    runs no BB84 (plans for security="none"; the trainer passes its own
+    registry and ``with_seeds=False``).
     """
     t_idx = round_steps(trace, fl.n_rounds, round_stride)
     R, N = fl.n_rounds, trace.n_sats

@@ -79,8 +79,10 @@ whole resume state after a round in the JAX package's file format
 uninterrupted one, and the port resumes a run that the JAX trainer
 started (``convert.trainer_state_from_checkpoint``).
 
-Not ported yet, and refused with ``NotImplementedError`` rather than run
-weaker: a custom ``sample_batch`` (ROADMAP queue 1, item 13).
+**A custom sampler.** ``sample_batch(data, key, batch_size)`` other than
+``default_sample_batch`` draws each local step's batch from one client's
+unpadded data with the JAX trainer's keys. It has no padding contract, so
+it runs on the per-client oracle whatever ``batched`` says.
 """
 from __future__ import annotations
 
@@ -223,15 +225,15 @@ class SatQFLTrainer:
                  batched: bool = True, edge_batched: bool = True,
                  device=None):
         self.device = dev = resolve_device(device)
-        if sample_batch is not default_sample_batch:
-            raise NotImplementedError(
-                "a custom sample_batch (the JAX trainer's per-client oracle "
-                "drop) is not ported yet (ROADMAP queue 1, item 13)")
         self.model_cfg = model_cfg
         self.api = api
         self.fl = fl
         self.comm = comm or CommModel()
-        self.batched = batched
+        self.sample_batch = sample_batch
+        self._custom_sampler = sample_batch is not default_sample_batch
+        # the batched executor samples through the bounded default sampler;
+        # a custom sampler has no padding contract -> the per-client oracle
+        self.batched = batched and not self._custom_sampler
         self.n_sats = trace.n_sats
         if len(sat_data) != self.n_sats:
             raise ValueError(f"{len(sat_data)} client datasets for "
@@ -271,6 +273,9 @@ class SatQFLTrainer:
         self._data_stacked = {
             k: torch.stack([pad(d[k], c) for d, c in zip(sat_data, counts)])
             for k in sat_data[0]}
+        # a custom sampler draws from each client's own unpadded data
+        self._sat_data = ([tree_map(lambda x: x.to(dev), d) for d in sat_data]
+                          if self._custom_sampler else None)
         self.server_data = tree_map(lambda x: x.to(dev), server_data)
         self.log = CommLog()
         self.history: list[RoundMetrics] = []
@@ -306,7 +311,8 @@ class SatQFLTrainer:
             trace, fl, sample_counts=counts,
             keymgr=(self.keymgr if (fl.security != "none"
                                     or fl.agg_security == "secagg")
-                    else None))
+                    else None),
+            with_seeds=False)
         if fl.mode == "async":
             self._init_async()
 
@@ -349,11 +355,20 @@ class SatQFLTrainer:
         """Per-client oracle: the shared program on one client row."""
         fl = self.fl
         one = lambda x: x[None]
-        data = {k: v[sat:sat + 1] for k, v in self._data_stacked.items()}
-        batches = sample_local_batches(data, self._sat_key(r, sat)[None],
-                                       fl.batch_size,
-                                       self._n_samples[sat:sat + 1],
-                                       fl.local_steps)
+        if self._custom_sampler:
+            # the caller's sampler on the unpadded data, one key per step
+            # from the JAX trainer's split of the (round, sat) key
+            keys = prng.split(self._sat_key(r, sat), fl.local_steps)
+            batches = [tree_map(one, self.sample_batch(self._sat_data[sat],
+                                                       keys[e],
+                                                       fl.batch_size))
+                       for e in range(fl.local_steps)]
+        else:
+            data = {k: v[sat:sat + 1] for k, v in self._data_stacked.items()}
+            batches = sample_local_batches(data, self._sat_key(r, sat)[None],
+                                           fl.batch_size,
+                                           self._n_samples[sat:sat + 1],
+                                           fl.local_steps)
         p, o, loss = self._local_train(
             tree_map(one, params), tree_map(one, self.opt_states[sat]),
             batches, r * fl.local_steps)

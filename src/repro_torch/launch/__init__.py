@@ -1,1 +1,2 @@
-"""Launchers of the port: step functions and the serving entry point."""
+"""Launchers of the port: step functions, the serving entry point and the
+training driver's ``--fl`` path."""

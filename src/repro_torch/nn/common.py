@@ -1,4 +1,5 @@
-"""Common functional layers shared by the LLM blocks (port of ``repro.nn.common``).
+"""Common functional layers of the LLM blocks, the LM loss and a parameter
+count (port of ``repro.nn.common``).
 
 Numerics policy, as in the JAX package: normalization statistics are
 computed in float32 whatever the activation dtype (bf16 on the card), and
@@ -8,6 +9,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.nn.pytree import tree_leaves
 
 _F32 = torch.float32
 
@@ -79,3 +82,37 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     activation in the native dtype as the JAX package keeps it."""
     h = F.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor | None,
+             w_out: torch.Tensor, b_out: torch.Tensor | None) -> torch.Tensor:
+    """GELU MLP (whisper / classic transformer), with ``jax.nn.gelu``'s
+    default tanh approximation."""
+    h = x @ w_in
+    if b_in is not None:
+        h = h + b_in
+    y = F.gelu(h, approximate="tanh") @ w_out
+    if b_out is not None:
+        y = y + b_out
+    return y
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy in float32; labels are int ids, ``mask``
+    0/1 weights. The label's logit is a masked sum over the vocab (iota ==
+    label), as the JAX package takes it."""
+    lf = logits.to(_F32)
+    m = torch.amax(lf, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    onehot = torch.arange(lf.shape[-1], device=lf.device) == labels[..., None]
+    ll = torch.sum(torch.where(onehot, lf, 0.0), dim=-1)
+    nll = lse - ll
+    if mask is not None:
+        w = mask.to(_F32)
+        return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+    return torch.mean(nll)
+
+
+def count_params(params) -> int:
+    return sum(x.numel() for x in tree_leaves(params))

@@ -4,9 +4,9 @@ Every initializer takes (key, shape, dtype) and returns a tensor on the
 key's device. A key is a threefry key of :mod:`repro_torch.prng`; the draws
 come from a ``torch.Generator`` seeded from its two words, so a model's
 init is a function of its key, as in the JAX package. The draws differ
-from ``jax.random``'s (no bit-exact torch twin of ``normal`` or
-``truncated_normal``): tests carry JAX's weights across with
-:mod:`repro_torch.convert` instead.
+from ``jax.random``'s. ``prng.normal`` comes within 2 ulp of
+``jax.random.normal``, but ``truncated_normal`` has no torch twin, so
+tests carry JAX's weights across with :mod:`repro_torch.convert` instead.
 """
 from __future__ import annotations
 

@@ -54,8 +54,46 @@ def tree_unflatten(like, leaves: list):
     return out
 
 
+def tree_size(tree) -> int:
+    """Total number of scalar elements."""
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
 def tree_bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def tree_flatten_to_vector(tree, dtype=torch.float32) -> torch.Tensor:
+    """All leaves cast to ``dtype`` and concatenated into one 1-D vector."""
+    return torch.cat([x.to(dtype).reshape(-1) for x in tree_leaves(tree)])
+
+
+def tree_unflatten_from_vector(vec: torch.Tensor, like):
+    """Inverse of ``tree_flatten_to_vector`` given a template: each leaf
+    takes its slice of ``vec``, reshaped and cast to the template's."""
+    out, off = [], 0
+    for leaf in tree_leaves(like):
+        n = leaf.numel()
+        out.append(vec[off:off + n].reshape(leaf.shape).to(leaf.dtype))
+        off += n
+    return tree_unflatten(like, out)
+
+
+def tree_cast(tree, dtype):
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
+def tree_zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_scale(tree, s):
+    """Every leaf times ``s``, in float32, cast back to the leaf's dtype."""
+    return tree_map(lambda x: (x.to(torch.float32) * s).to(x.dtype), tree)
 
 
 def tree_weighted_sum(trees: list, weights: list):

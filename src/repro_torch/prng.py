@@ -13,6 +13,9 @@ client (``fold_in`` of a key by a vector of satellite ids) without a loop.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -109,6 +112,111 @@ def uniform(key: torch.Tensor, shape: tuple, minval=0.0,
     # to float32 reproduces it
     fma = (f.double() * (hi - lo).double() + lo.double()).to(torch.float32)
     return torch.maximum(lo, fma)
+
+
+# ---------------------------------------------------------------------------
+# normal: XLA's float32 erf_inv over XLA's CPU log1p and log
+# ---------------------------------------------------------------------------
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
+    """a·b + c in float32 with one rounding, as XLA's fused multiply-add:
+    the float64 product of two float32s is exact."""
+    return (a.double() * b.double() + c).to(torch.float32)
+
+
+def _poly32(x: torch.Tensor, coeffs: tuple) -> torch.Tensor:
+    """Horner's rule in fused multiply-adds, highest degree first, the
+    coefficients rounded to float32 as XLA's constants are."""
+    p = torch.full_like(x, coeffs[0])
+    for c in coeffs[1:]:
+        p = _fma32(p, x, float(np.float32(c)))
+    return p
+
+
+# Cephes' logf, XLA's CPU float32 log: x = m − 1 for the mantissa m in
+# [√½, √2), then x − x²/2 + x³·P(x) + e·ln 2 (ln 2 split in two), every
+# multiply and add rounded on its own
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_F32_NOT_EXPONENT = -2139095041             # 0x807FFFFF as int32
+
+
+def _log32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``log`` for positive finite x, op for op (1 ulp
+    from XLA's on 0.05% of inputs)."""
+    b = torch.clamp(x, min=2.0 ** -126).view(torch.int32)
+    m = ((b & _F32_NOT_EXPONENT) | 0x3F000000).view(torch.float32)
+    e = ((b >> 23) - 127).to(torch.float32) + 1.0
+    low = m < 0.70710677
+    x = (m - 1.0) + torch.where(low, m, 0.0)
+    e = e - low.to(torch.float32)
+    x2 = x * x
+    x3 = x2 * x
+    p = _LOG_P
+    y = (x * p[0] + p[1]) * x + p[2]
+    y1 = (x * p[3] + p[4]) * x + p[5]
+    y2 = (x * p[6] + p[7]) * x + p[8]
+    y = ((y * x3 + y1) * x3 + y2) * x3 + e * -2.12194440e-4
+    return ((x - x2 * 0.5) + y) + e * 0.693359375
+
+
+# Cephes' log1p below √2 − 1, XLA's: x − x²/2 + x³·P(x)/Q(x)
+_LOG1P_P = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+            6.5787325942061044846969e0, 2.9911919328553073277375e1,
+            6.0949667980987787057556e1, 5.7112963590585538103336e1,
+            2.0039553499201281259648e1)
+_LOG1P_Q = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+            2.2176239823732856465394e2, 3.0909872225312059774938e2,
+            2.1642788614495947685003e2, 6.0118660497603843919306e1)
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``log1p``: Cephes' rational form (its
+    multiply-adds fused) below |x| = √2 − 1, bit for bit; ``log(1 + x)``
+    above it."""
+    x2 = x * x
+    r = _poly32(x, _LOG1P_P) / _poly32(x, _LOG1P_Q)
+    small = x + _fma32(x2, torch.full_like(x, -0.5), (x * x2 * r).double())
+    return torch.where(x.abs() < 0.41421356237309504880, small,
+                       _log32(x + 1.0))
+
+
+# Giles' single-precision erf_inv, XLA's: a polynomial in w − 2.5 for
+# w = −log1p(−x²) < 5 and in √w − 3 above, highest degree first
+_ERFINV_LO = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+              -4.39150654e-06, 0.00021858087, -0.00125372503,
+              -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_HI = (-0.000200214257, 0.000100950558, 0.00134934322,
+              -0.00367342844, 0.00573950773, -0.0076224613,
+              0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` (``torch.erfinv`` is another function,
+    up to 63 ulp away): Giles' polynomial with fused multiply-adds, on
+    ``log1p``. Within 2 ulp of ``jax.lax.erf_inv``."""
+    w = -log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    # python-float coefficients select as float32 constants
+    p = torch.where(lt, _ERFINV_LO[0], _ERFINV_HI[0])
+    for lo, hi in zip(_ERFINV_LO[1:], _ERFINV_HI[1:]):
+        p = _fma32(p, w, torch.where(lt, lo, hi).double())
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+#: nextafter(−1, 0) in float32, the low end of ``normal``'s uniform, and
+#: sqrt(2) rounded to float32, as JAX multiplies by it
+_NEXT_ABOVE_M1 = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2_F32 = float(np.float32(math.sqrt(2)))
+
+
+def normal(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``jax.random.normal`` in float32: ``uniform`` on [nextafter(−1, 0),
+    1) through ``sqrt(2) · erfinv``. The uniform bits are JAX's; the values
+    are within 2 ulp of JAX's (see ``erfinv``)."""
+    return erfinv(uniform(key, shape, _NEXT_ABOVE_M1, 1.0)) * _SQRT2_F32
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: tuple) -> torch.Tensor:

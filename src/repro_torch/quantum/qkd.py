@@ -132,6 +132,10 @@ def bb84_keygen_edges(keys: torch.Tensor, n_bits: int,
                                       device=keys.device))
 
 
+def qber_estimate(res: BB84Result) -> torch.Tensor:
+    return res.qber
+
+
 def qber_abort_mask(res: BB84Result, threshold: float) -> torch.Tensor:
     """(E,) bool: True where the edge's QBER crossed the abort threshold."""
     return res.qber > threshold

@@ -30,6 +30,7 @@ CDTYPE = torch.complex64
 # fixed gates on the CPU; the apply_* functions move them to the state
 H = (1.0 / math.sqrt(2.0)) * torch.tensor([[1, 1], [1, -1]], dtype=CDTYPE)
 X = torch.tensor([[0, 1], [1, 0]], dtype=CDTYPE)
+Y = torch.tensor([[0, -1j], [1j, 0]], dtype=CDTYPE)
 Z = torch.tensor([[1, 0], [0, -1]], dtype=CDTYPE)
 
 
@@ -96,6 +97,14 @@ def apply_h(state: torch.Tensor, qubit: int) -> torch.Tensor:
     return apply_1q(state, H.to(state.device), qubit)
 
 
+def apply_ry(state: torch.Tensor, theta, qubit: int) -> torch.Tensor:
+    return apply_1q(state, ry_gate(theta).to(state.device), qubit)
+
+
+def apply_rz(state: torch.Tensor, phi, qubit: int) -> torch.Tensor:
+    return apply_1q(state, rz_gate(phi).to(state.device), qubit)
+
+
 def apply_u3(state: torch.Tensor, theta, phi, lam,
              qubit: int) -> torch.Tensor:
     return apply_1q(state, u3_gate(theta, phi, lam).to(state.device), qubit)
@@ -118,6 +127,20 @@ def apply_cnot(state: torch.Tensor, control: int,
     idx = torch.arange(state.shape[-1], device=state.device)
     swapped = state[..., idx ^ (1 << target)]
     return torch.where(_bit(idx, control) == 1, swapped, state)
+
+
+def apply_controlled_1q(state: torch.Tensor, gate: torch.Tensor,
+                        control: int, target: int) -> torch.Tensor:
+    """General controlled single-qubit gate (conditioned corrections):
+    where the control bit is 1, out[i] = g[t, t]·s[i] + g[t, 1−t]·s[i ^
+    2^target] with t the target bit of i."""
+    idx = torch.arange(state.shape[-1], device=state.device)
+    gate = gate.to(state.device)
+    tbit = _bit(idx, target)
+    g_tt = torch.where(tbit == 0, gate[0, 0], gate[1, 1])
+    g_to = torch.where(tbit == 0, gate[0, 1], gate[1, 0])
+    mixed = g_tt * state + g_to * state[..., idx ^ (1 << target)]
+    return torch.where(_bit(idx, control) == 1, mixed, state)
 
 
 # ---------------------------------------------------------------------------
@@ -222,6 +245,22 @@ def expect_z(state: torch.Tensor, qubit: int) -> torch.Tensor:
     idx = torch.arange(state.shape[-1], device=state.device)
     sign = torch.where(_bit(idx, qubit) == 0, 1.0, -1.0)
     return torch.sum(probs(state) * sign, dim=-1)
+
+
+def sample_measure(key: torch.Tensor, state: torch.Tensor,
+                   shots: int) -> torch.Tensor:
+    """``shots`` computational-basis outcomes, (..., shots) int32, drawn as
+    ``jax.random.categorical(key, logp, shape=(..., shots))`` draws them:
+    the argmax over the basis of log(max(p, 1e-30)) plus Gumbel noise
+    −log(−log(u)), u from ``prng.uniform`` on [tiny, 1) over (...,
+    shots, 2^n). The log-probabilities broadcast right-aligned against
+    that noise, as in JAX, so a batch of states must broadcast against
+    (shots,)."""
+    logp = torch.log(torch.clamp(probs(state), min=1e-30))
+    shape = tuple(logp.shape[:-1]) + (shots, logp.shape[-1])
+    u = prng.uniform(key, shape, float(torch.finfo(torch.float32).tiny), 1.0)
+    return torch.argmax(-torch.log(-torch.log(u)) + logp,
+                        dim=-1).to(torch.int32)
 
 
 def measure_qubit(key: torch.Tensor, state: torch.Tensor, qubit: int):

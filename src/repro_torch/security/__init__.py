@@ -25,7 +25,8 @@ from repro_torch.security.mac import (
     P31, mac_verify, mac_verify_rows, poly_mac_rows, poly_mac_u32,
 )
 from repro_torch.security.otp import (
-    decrypt_tree, decrypt_tree_rows, encrypt_tree, encrypt_tree_rows,
+    decrypt_tree, decrypt_tree_rows, encrypt_flat_u32, encrypt_tree,
+    encrypt_tree_rows,
     SECAGG_CLIP, SECAGG_FRAC_BITS, SECAGG_W_MAX, layout_rows, pad_layout,
     pad_u32, pad_u32_rows, q32_to_tree, secagg_mask_stream, sum_signed_pads,
     tree_pad_u32, tree_pad_u32_rows, tree_to_q32, tree_to_u32,
@@ -33,7 +34,7 @@ from repro_torch.security.otp import (
 )
 
 __all__ = [
-    "encrypt_tree", "decrypt_tree", "pad_u32", "tree_to_u32", "u32_to_tree",
+    "encrypt_tree", "decrypt_tree", "encrypt_flat_u32", "pad_u32", "tree_to_u32", "u32_to_tree",
     "encrypt_tree_rows", "decrypt_tree_rows", "pad_u32_rows",
     "tree_to_u32_rows", "u32_to_tree_rows", "tree_pad_u32",
     "tree_pad_u32_rows", "pad_layout", "layout_rows",

@@ -106,6 +106,12 @@ def pad_u32_rows(seeds_u32: torch.Tensor, n: int) -> torch.Tensor:
     return prng.bits(_seed_keys(seeds_u32, seeds_u32.device), (n,))
 
 
+def encrypt_flat_u32(msg_u32: torch.Tensor, seed_u32) -> torch.Tensor:
+    """Bulk path: ciphertext = msg ⊕ pad for a flat (n,) stream of u32
+    words (int64)."""
+    return msg_u32 ^ pad_u32(seed_u32, msg_u32.shape[0], msg_u32.device)
+
+
 def _leaf_pads(leaves: list, base: torch.Tensor, lead: int) -> list:
     """Per-leaf pad words shaped like each leaf: leaf i draws its own
     width's bits under ``fold_in(base, i)``; ``lead`` leading dims of each

@@ -262,7 +262,7 @@ def test_staleness_schedule_matches_jax(name, security, agg):
     pt = compile_round_plan(trace, SatQFLConfig(**fl), sample_counts=counts,
                             keymgr=KeyManager(prng.PRNGKey(7, "cpu"),
                                               eavesdrop_edges=eav)
-                            if keyed else None)
+                            if keyed else None, with_seeds=False)
     _assert_plans_equal(pt, pj)
     for r in range(4):
         assert pt.live_groups(r) == pj.live_groups(r)
@@ -276,9 +276,10 @@ def test_secagg_plan_without_a_registry():
     _, trace = make_trace(sg, ss)
     fl = SatQFLConfig(mode="async", n_rounds=4, agg_security="secagg",
                       seed=3)
-    pt = compile_round_plan(trace, fl, device="cpu")
+    pt = compile_round_plan(trace, fl, with_seeds=False, device="cpu")
     pk = compile_round_plan(trace, fl,
-                            keymgr=KeyManager(prng.PRNGKey(10, "cpu")))
+                            keymgr=KeyManager(prng.PRNGKey(10, "cpu")),
+                            with_seeds=False)
     assert pt.stale.with_secagg and pt.stale.pair_seed.any()
     _assert_plans_equal(pt, pk)
 
@@ -290,7 +291,8 @@ def test_staleness_semantics_compiled():
     sg, ss = pattern("gappy", R)
     _, trace = make_trace(sg, ss)
     st = compile_round_plan(trace, SatQFLConfig(mode="async", n_rounds=R,
-                                                max_staleness=2)).stale
+                                                max_staleness=2),
+                            with_seeds=False).stale
     for r in range(R - 1):                 # sat 2: open every step
         assert st.delay_rounds[r, 2] == 1 and st.deliver_round[r, 2] == r + 1
     assert st.deliver_round[R - 1, 2] == -1
@@ -304,7 +306,8 @@ def test_staleness_semantics_compiled():
     sg2, ss2 = pattern("stale", R)
     _, trace2 = make_trace(sg2, ss2)
     st2 = compile_round_plan(trace2, SatQFLConfig(mode="async", n_rounds=R,
-                                                  max_staleness=1)).stale
+                                                  max_staleness=1),
+                             with_seeds=False).stale
     assert st2.deliver_round[0, 1] == -1          # d=4 > Δ=1
     assert np.isfinite(st2.tx_wait_s[0, 1])       # but it did wait
 

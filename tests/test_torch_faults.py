@@ -165,7 +165,7 @@ def test_fault_schedule_matches_jax(world, secure_traces, mode, where):
               else secure_traces)
     fl = dict(_fl(mode), n_rounds=4 if where == "dense" else 3)
     pj = jax_compile(jt, JaxConfig(**fl), with_seeds=False)
-    pt = compile_round_plan(tt, SatQFLConfig(**fl))
+    pt = compile_round_plan(tt, SatQFLConfig(**fl), with_seeds=False)
     _assert_schedules_equal(pt, pj)
     f = pt.faults
     assert f.crash.any() and f.tamper.any()
@@ -179,7 +179,7 @@ def test_fault_schedule_matches_jax(world, secure_traces, mode, where):
 def test_zero_rates_compile_no_schedule(world):
     fl = SatQFLConfig(**dict(FL, mode="async", security="qkd",
                              max_retries=2))
-    pt = compile_round_plan(world["trace"], fl)
+    pt = compile_round_plan(world["trace"], fl, with_seeds=False)
     assert pt.faults is None
     assert pt.fault_mask(0, "cpu").tolist() == [1.0] * pt.n_sats
     assert pt.live_sats(0) == list(range(pt.n_sats))

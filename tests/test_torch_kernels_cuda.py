@@ -19,6 +19,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.statevec_gate import ops, ref
 from repro_torch.kernels.swa_attention import ops as swa_ops
 from repro_torch.models.blocks import ssd_ref
+from repro_torch.nn.pytree import tree_leaves
 from torch_bf16_limit import bf16_steps
 
 
@@ -1033,3 +1034,146 @@ def test_kill_resume_bit_identical_on_card(tmp_path):
         [m.participants for m in c.history]
     assert a.fault_reports == c.fault_reports
     assert a.log.round_details == c.log.round_details
+
+
+# ---------------------------------------------------------------------------
+# the in-graph round (core.dist) on the card
+# ---------------------------------------------------------------------------
+
+def _dist_world(device, nq=4, layers=1, n=6, steps=2, batch=8, seed=1):
+    """A small stacked world on ``device``: config, api, inputs made by
+    numpy from a seed (seeds u32 in int64 words)."""
+    from repro_torch.models import get_config, get_model
+    cfg = get_config("vqc-satqfl").replace(vqc_qubits=nq, vqc_layers=layers,
+                                           n_features=nq)
+    rng = np.random.default_rng(seed)
+    batches = {
+        "features": torch.tensor(rng.uniform(0, np.pi, (n, steps, batch, nq)
+                                             ).astype(np.float32),
+                                 device=device),
+        "labels": torch.tensor(rng.integers(0, 7, (n, steps, batch)),
+                               device=device)}
+    mask = torch.tensor((rng.uniform(size=n) > 0.4).astype(np.float32),
+                        device=device)
+    seeds = torch.tensor(rng.integers(0, 2 ** 32, n), device=device)
+    return cfg, get_model(cfg), batches, mask, seeds
+
+
+def _dist_rounds(device, mode, security, rounds=2, opt="momentum",
+                 grad_method="autodiff", hops=2, **kw):
+    """``rounds`` rounds of ``make_fl_round`` on ``_dist_world``: (final
+    state, the metrics of each round)."""
+    from repro_torch import prng
+    from repro_torch.core import SatQFLConfig
+    from repro_torch.core.dist import fl_init_state, make_fl_round
+    from repro_torch.nn import optim
+    cfg, api, batches, mask, seeds = _dist_world(device, **kw)
+    n = mask.shape[0]
+    fl = SatQFLConfig(mode=mode, local_steps=batches["labels"].shape[1],
+                      batch_size=8, grad_method=grad_method)
+    opt = getattr(optim, opt)(0.1)
+    state = fl_init_state(cfg, api, opt, n, prng.PRNGKey(0, device))
+    rf = make_fl_round(cfg, api, fl, opt, n, security=security,
+                       seq_hops=hops)
+    metrics = []
+    for _ in range(rounds):
+        state, m = rf(state, batches, mask, seeds)
+        metrics.append(m)
+    return state, metrics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sim", "async"])
+def test_dist_otp_round_card_matches_cpu(mode):
+    """Two otp rounds of the in-graph engine on the card and on the CPU:
+    params, optimizer slots, stale buffers and losses within 1e-5; two
+    seeded OTP launches a round on the card."""
+    _need_cuda()
+    before = otp_ops.LAUNCHES["otp_xor_mac_edges_seeded"]
+    sc, mc = _dist_rounds("cuda", mode, "otp")
+    assert otp_ops.LAUNCHES["otp_xor_mac_edges_seeded"] == before + 4
+    sp, mp = _dist_rounds("cpu", mode, "otp")
+    np.testing.assert_allclose([float(m["loss"]) for m in mc],
+                               [float(m["loss"]) for m in mp], rtol=0,
+                               atol=1e-5)
+    for a, b in ((sc.params, sp.params), (sc.opt_slots, sp.opt_slots),
+                 (sc.stale, sp.stale)):
+        for x, y in zip(tree_leaves(a), tree_leaves(b)):
+            assert (x.cpu() - y).abs().max() <= 1e-5
+    assert torch.equal(sc.stale_age.cpu(), sp.stale_age)
+
+
+@pytest.mark.cuda
+def test_dist_otp_gather_verifies_and_catches_a_flipped_word():
+    """otp_gather on the card: ``mac_ok`` true and the aggregate bit-equal
+    to otp's; outside the round, the sender's launch equals the plain
+    version bit for bit, and a ciphertext with one flipped word fails its
+    row's MAC and no other row's, both under the plain verify and under
+    the round's own check (the aggregator's launch against the sender's
+    tags)."""
+    _need_cuda()
+    from repro_torch.core import dist
+    from repro_torch.kernels.otp_xor.ref import (as_storage,
+                                                 otp_xor_mac_rows_seeded_ref)
+    from repro_torch.security.mac import mac_verify_rows
+    from repro_torch.security.otp import (pad_layout, tree_to_u32_rows,
+                                          u32_to_tree_rows)
+    sg, mg = _dist_rounds("cuda", "sim", "otp_gather", rounds=1)
+    so, _ = _dist_rounds("cuda", "sim", "otp", rounds=1)
+    assert bool(mg[0]["mac_ok"])
+    for x, y in zip(tree_leaves(sg.params), tree_leaves(so.params)):
+        assert torch.equal(x, y)
+    seeds = dist._round_seeds(_dist_world("cuda")[-1], 1, dist._OTP_MIX)
+    r, s = dist._mac_keys(seeds)
+    ct, tags = dist._gather_send(sg.params, seeds)
+    want_ct, want_tags = otp_xor_mac_rows_seeded_ref(
+        as_storage(tree_to_u32_rows(sg.params)), as_storage(seeds),
+        pad_layout(sg.params, lead=1), as_storage(r), as_storage(s))
+    assert torch.equal(as_storage(tree_to_u32_rows(ct)), want_ct)
+    assert torch.equal(tags, want_tags)
+    rows = tree_to_u32_rows(ct)
+    assert mac_verify_rows(rows, tags, r, s).all()
+    rows[3, 7] ^= 1 << 20
+    assert mac_verify_rows(rows, tags, r, s).tolist() == [
+        i != 3 for i in range(6)]
+    _, rx = dist._gather_receive(u32_to_tree_rows(rows, ct), seeds)
+    assert (rx == tags).tolist() == [i != 3 for i in range(6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,security,grad_method", [
+    ("sim", "none", "autodiff"), ("sim", "otp", "autodiff"),
+    ("sim", "otp_gather", "autodiff"), ("sim", "secagg", "autodiff"),
+    ("seq", "otp", "autodiff"), ("async", "otp", "autodiff"),
+    ("sim", "none", "param_shift")])
+def test_dist_round_launch_counts(mode, security, grad_method):
+    """A round's launches at 8 qubits and 3 layers, E = 2 local steps, H =
+    seq_hops for seq and 1 otherwise: E·(1 + L)·H of #1 and E·2L·H of the
+    layer backward under autodiff; E·(1 + L + L²) of #1 and E·4·nq·L of
+    #3 under the shift rule; the seeded OTP rows entry 2·H (otp), 2
+    (otp_gather) or 0; nothing else."""
+    _need_cuda()
+    nq, L, E = 8, 3, 2
+    H = 2 if mode == "seq" else 1
+    _dist_rounds("cuda", mode, security, rounds=1, nq=nq, layers=L,
+                 grad_method=grad_method)        # warm: builds the kernels
+    before = _all_launches()
+    _dist_rounds("cuda", mode, security, rounds=1, nq=nq, layers=L,
+                 grad_method=grad_method)
+    got = {k: v - before[k] for k, v in _all_launches().items()}
+    want = {k: 0 for k in got}
+    if grad_method == "param_shift":
+        want["layer"] = E * (1 + L + L * L)
+        want["gate_1q"] = E * 4 * nq * L
+    else:
+        want["layer"] = E * (1 + L) * H
+        want["layer_bwd"] = E * 2 * L * H * len(ops.bwd_passes(nq))
+    want["otp_xor_mac_edges_seeded"] = {"otp": 2 * H,
+                                        "otp_gather": 2}.get(security, 0)
+    assert got == want
+
+
+def _all_launches() -> dict:
+    return {"layer": ops.LAUNCHES, "tiled": ops.TILED_LAUNCHES,
+            "gate_1q": ops.GATE_LAUNCHES, "layer_bwd": ops.LAYER_BWD_LAUNCHES,
+            **otp_ops.LAUNCHES}

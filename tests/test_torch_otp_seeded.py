@@ -245,3 +245,16 @@ def test_trainer_builds_no_pads_in_plain_torch():
                         "otp_xor_mac_rows", "otp_xor_mac_stream"}
     assert {"otp_xor_mac_rows_seeded", "otp_xor_mac_stream_seeded",
             "pad_layout"} <= names
+
+
+def test_in_graph_round_builds_no_pads_in_plain_torch():
+    """The in-graph round's otp, otp_gather and ``otp_stacked`` reach only
+    the seeded rows entry, whose CPU path is its plain version:
+    ``core/dist.py`` names no plain-torch pad or encryption function nor a
+    given-pad entry."""
+    names = _names(ROOT / "src" / "repro_torch" / "core" / "dist.py")
+    assert not names & {"tree_pad_u32", "tree_pad_u32_rows", "pad_u32",
+                        "pad_u32_rows", "encrypt_tree", "encrypt_tree_rows",
+                        "decrypt_tree_rows", "otp_xor_mac_rows",
+                        "otp_xor_mac_stream", "otp_xor_mac_stream_seeded"}
+    assert {"otp_xor_mac_rows_seeded", "pad_layout"} <= names

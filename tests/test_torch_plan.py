@@ -74,7 +74,7 @@ def test_plan_on_jax_trace_is_exact(traces, mode):
     pj = jax_compile(jt, JaxConfig(**fl), sample_counts=counts,
                      with_seeds=False)
     pt = compile_round_plan(_as_port_trace(jt), SatQFLConfig(**fl),
-                            sample_counts=counts)
+                            sample_counts=counts, with_seeds=False)
     _assert_plans_equal(pt, pj)
 
 
@@ -90,7 +90,8 @@ def test_port_trace_and_its_plan_match(traces):
     # latency sums ISL distances of those positions: measured 8.5e-8
     # relative apart; every discrete plan array stays exactly equal
     fl = dict(mode="sim", n_rounds=3)
-    _assert_plans_equal(compile_round_plan(tt, SatQFLConfig(**fl)),
+    _assert_plans_equal(compile_round_plan(tt, SatQFLConfig(**fl),
+                                           with_seeds=False),
                         jax_compile(jt, JaxConfig(**fl), with_seeds=False),
                         latency_rtol=1e-6)
 
@@ -125,7 +126,8 @@ def test_plan_fault_schedule_matches_jax(traces, kw):
     jt, _ = traces
     fl = dict(n_rounds=2, fault_seed=5, **kw)
     pj = jax_compile(jt, JaxConfig(**fl), with_seeds=False)
-    pt = compile_round_plan(_as_port_trace(jt), SatQFLConfig(**fl))
+    pt = compile_round_plan(_as_port_trace(jt), SatQFLConfig(**fl),
+                            with_seeds=False)
     _assert_plans_equal(pt, pj)
     assert pt.faults is not None
     for f in FAULT_FIELDS:
@@ -155,7 +157,8 @@ def test_keyed_edge_schedule_matches_jax(traces, mode, eav):
                                           eavesdrop_edges=eav))
     pt = compile_round_plan(_as_port_trace(jt), SatQFLConfig(**fl),
                             keymgr=KeyManager(prng.PRNGKey(7, "cpu"),
-                                              eavesdrop_edges=eav))
+                                              eavesdrop_edges=eav),
+                            with_seeds=False)
     _assert_plans_equal(pt, pj)
     es = pt.edges
     assert es.with_keys and es.abort.any() == bool(eav)
@@ -174,7 +177,8 @@ def test_teleport_plan_matches_jax(traces, mode):
                                           eavesdrop_edges=EAV))
     pt = compile_round_plan(_as_port_trace(jt), SatQFLConfig(**fl),
                             keymgr=KeyManager(prng.PRNGKey(7, "cpu"),
-                                              eavesdrop_edges=EAV))
+                                              eavesdrop_edges=EAV),
+                            with_seeds=False)
     _assert_plans_equal(pt, pj)
     assert pt.edges.with_keys and pt.edges.abort.any()
 
@@ -190,6 +194,19 @@ def test_seed_schedule_matches_jax(traces, mode):
                             with_seeds=True, device="cpu")
     assert pt.seeds.any()
     _assert_plans_equal(pt, pj)
+
+
+def test_plan_seeds_by_default_match_jax(traces):
+    """``compile_round_plan(trace, fl)`` with no ``with_seeds`` fills the
+    uplink pad seeds as the JAX package's default does, bit for bit (the
+    port's default was once False, which left every seed 0)."""
+    jt, _ = traces
+    fl = dict(mode="sim", n_rounds=3, security="qkd")
+    pj = jax_compile(jt, JaxConfig(**fl))
+    pt = compile_round_plan(_as_port_trace(jt), SatQFLConfig(**fl),
+                            device="cpu")
+    assert pj.seeds.any() and pt.seeds.dtype == pj.seeds.dtype
+    np.testing.assert_array_equal(pt.seeds, pj.seeds)
 
 
 def test_comm_model_and_log_match():
