@@ -144,17 +144,21 @@ all at once) and then:
    ``_bf16_steps``) at hymba-1.5b's prefill shape (4, 2048,
    25 heads over 5 kv heads, hd 64) at W=1024 and W=0 in bf16 and f32,
    qwen3-0.6b's hd 128 with GQA 16/8, and S=1000 with W=100, W > S and
-   S=1; times the kernel (CUDA events, back to back and on the device
+   S=1, and at the LM training path's full causal shapes (4 x 2048 tokens:
+   qwen3 in bf16 and f32, tinyllama's GQA 32/4, olmo's MHA at hd 128,
+   granite's MQA; the smoke steps' f32 shapes); times the kernel (CUDA events, back to back and on the device
    alone), the plain version and
    SDPA with a boolean band mask (the library yardstick, used nowhere in
-   the port) at hymba's shape, where SDPA and the XLA path's bf16 softmax
-   (``blocks._sdpa_core``) must fail the bf16 limit;
+   the port) at hymba's shapes and the three full-width training shapes,
+   where SDPA and the XLA path's bf16 softmax (``blocks._sdpa_core``)
+   must fail the bf16 limit;
 11. holds the SSD scan kernel (one launch over (batch, head, chunk)
    blocks) against its plain version (y and state ≤ 3e-5 in f32; y within
    one bf16 step of each element in bf16, which the plain version fed dt
    rounded to bf16 must fail; the state ≤ 3e-5 in both) at hymba's (4,
-   2048, 50 heads, P 64, N 16), mamba2-130m's N=128 in f32 and bf16, two
-   B/C groups and S=1000 (chunk 125), and once from a given initial state;
+   2048, 50 heads, P 64, N 16), mamba2-130m's N=128 in f32 and bf16 (its
+   training shape), two B/C groups and S=1000 (chunk 125), the smoke
+   mamba2's, and once from a given initial state;
    times it at hymba's shape and at mamba2-130m's N=128 in bf16;
 12. serves hymba-1.5b at full width and depth in bf16 from random weights:
    one ``make_prefill_step`` over 4 requests x 2048 tokens and
@@ -167,7 +171,25 @@ all at once) and then:
    decode-stepped logits over 64 tokens (rel < 2e-3), the full-depth
    prefill's next-token logits with the kernels vs their plain versions
    (rel ≤ 1e-4, TF32 off), and a 2-layer prefill of 2 x 256 tokens on
-   the CPU vs the card (rel ≤ 1e-4).
+   the CPU vs the card (rel ≤ 1e-4);
+14. trains the LM path (ROADMAP item 11a) in bf16 under adamw and the
+   launcher's cosine schedule on the synthetic corpus (``LM_TRAIN``):
+   qwen3-0.6b and mamba2-130m at full width and depth, 4 x 2048 tokens,
+   10 steps each through ``make_train_step``; tinyllama-1.1b and olmo-1b
+   one full-width step each through ``launch.train.main`` with no
+   ``--device``; granite-34b's smoke variant (in bf16) 3 steps. Every
+   step must launch #6 (dense) or #7 (ssm) exactly 2·L times (forward
+   and the per-layer recompute of the backward) and no other kernel, with
+   a finite loss; it prints each arch's seconds per step, tokens per
+   second, peak device memory and losses, and profiles one warm qwen3
+   step and one mamba2 step. Then a smoke step of qwen3 and mamba2 in f32 under sgd at lr 1,
+   card vs CPU (loss and every parameter, so every gradient, ≤ 1e-4), and
+   the federated-LLM twin
+   (``repro_torch.examples.llm_federated``, the smoke qwen3 on 4
+   satellites) on the card under none, otp, otp_gather and secagg, 2
+   rounds each, with its launches held per round (#6 4·3·2·L + L, the
+   seeded OTP rows entry 2 under otp and otp_gather) and otp_gather's
+   MAC check passing.
 
 It prints one ``{"kernels": [...]}`` line (the layer backward as
 ``statevec_gate_layer_bwd`` beside the seven ported TPU kernels; #4 and #5
@@ -175,7 +197,8 @@ as the OTP kernel's seeded entries, each with its given-pad body under
 ``given_pad``), the card
 line, and as its last
 line ``{"ok": true, "device": {...}}``. Each kernel's ``launches_by_path``
-covers the trainer paths, the in-graph paths (``dist_*``) and serving.
+covers the trainer paths, the in-graph paths (``dist_*``), serving, the
+LM training runs (``lm_*``) and the twin (``twin_*``).
 Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result. Any failed phase exits
 non-zero.
@@ -762,7 +785,9 @@ def phase_otp_kernel(torch, ops, ref):
 
 
 # the seeded body's trees: name -> (rows, leaves as (dtype, row shape) in
-# flatten order); "vqc" is the trainer's VQC tree (4 leaves, 62 words)
+# flatten order); "vqc" is the trainer's VQC tree (4 leaves, 62 words),
+# "qwen3_smoke" the federated-LLM twin's smoke qwen3-0.6b parameter tree
+# (float32, 13 leaves, 1,115,520 words a row), at the twin's 4 satellites
 OTP_SEEDED_TREES = {
     "stage": (64, "vqc"),
     "mixed": (5, [("float32", (3, 5)), ("bfloat16", (7,)),
@@ -772,6 +797,7 @@ OTP_SEEDED_TREES = {
     "bandwidth": (64, [("float32", (1 << 20,))]),
     "bandwidth_bf16": (64, [("bfloat16", (1 << 21,))]),
     "ingraph": (50, "vqc"),         # the in-graph round's 50 rows
+    "twin": (4, "qwen3_smoke"),     # the twin's otp and otp_gather rows
 }
 # the stream entry: the VQC tree (one edge, 62 words) and 65,543 words
 OTP_SEEDED_STREAMS = {
@@ -785,16 +811,19 @@ THREEFRY_OPS = 80              # integer operations of one threefry2x32
 
 def _seeded_like(torch, spec, rows):
     """A tree of the spec's leaf dtypes and shapes with ``rows`` leading
-    rows (none when ``rows`` is None); "vqc" is the trainer's model tree
-    from its init. Its values are unused: the kernel reads only the
-    message words and the tree's pad layout."""
+    rows (none when ``rows`` is None); "vqc" and "qwen3_smoke" are the
+    trainer's VQC tree and the twin's smoke qwen3-0.6b tree from their
+    inits. Its values are unused: the kernel reads only the message words
+    and the tree's pad layout."""
     lead = () if rows is None else (rows,)
-    if spec == "vqc":
+    if spec in ("vqc", "qwen3_smoke"):
         from repro_torch import prng
-        from repro_torch.models import get_config, get_model
-        cfg = get_config("vqc-satqfl")
+        from repro_torch.models import get_config, get_model, smoke_variant
+        from repro_torch.nn.pytree import tree_map
+        cfg = (get_config("vqc-satqfl") if spec == "vqc"
+               else smoke_variant(get_config("qwen3-0.6b")))
         tree = get_model(cfg).init(cfg, prng.PRNGKey(0, device="cuda"))
-        return {k: v.expand(lead + v.shape) for k, v in tree.items()}
+        return tree_map(lambda v: v.expand(lead + v.shape), tree)
     return {f"l{i}": torch.zeros(lead + shape, dtype=getattr(torch, dt),
                                  device="cuda")
             for i, (dt, shape) in enumerate(spec)}
@@ -819,7 +848,8 @@ def phase_otp_seeded(torch, ops, ref):
     plain version (the pads expanded from the same layout by the port's
     threefry), bit for bit, in both tag modes with seeds 0 and 2^32 - 1,
     at the trainer's stage, the in-graph round's 50 rows of the VQC
-    tree, a mixed-width tree, a multi-block tree, (64,
+    tree, the federated-LLM twin's 4 rows of the smoke qwen3-0.6b tree, a
+    mixed-width tree, a multi-block tree, (64,
     2^20) as one f32 leaf and as one bf16 leaf of 2^21 elements, and the
     stream entry at 62 and 65,543 words; times each against its bound, and
     at the stage shape also the path it replaced (the pads built by
@@ -2039,8 +2069,22 @@ SWA_SHAPES = {
     "s1000_w100_f32": (2, 1000, 25, 5, 64, 100, "float32"),
     "w_over_s_f32": (2, 300, 4, 2, 64, 1024, "float32"),
     "s1_bf16": (3, 1, 4, 2, 64, 1024, "bfloat16"),
+    # the LM training path's full causal shapes (phase 14): batch 4 x 2048
+    # tokens of qwen3 (hd 128, GQA 16/8), tinyllama (GQA 32/4), olmo (MHA
+    # 16/16, hd 128), granite's smoke variant (MQA); the smoke steps of the
+    # CPU-vs-card check and of the federated twin (f32, hd 32)
+    "qwen3_train_bf16": (4, 2048, 16, 8, 128, 0, "bfloat16"),
+    "qwen3_train_f32": (4, 2048, 16, 8, 128, 0, "float32"),
+    "tinyllama_train_bf16": (4, 2048, 32, 4, 64, 0, "bfloat16"),
+    "olmo_train_bf16": (4, 2048, 16, 16, 128, 0, "bfloat16"),
+    "granite_smoke_train_bf16": (4, 2048, 4, 1, 64, 0, "bfloat16"),
+    "qwen3_smoke_f32": (2, 128, 4, 2, 32, 0, "float32"),
+    "qwen3_twin_f32": (4, 64, 4, 2, 32, 0, "float32"),
 }
-SWA_TIMED = ("hymba_w1024_bf16", "hymba_w0_bf16")
+SWA_TIMED = ("hymba_w1024_bf16", "hymba_w0_bf16", "qwen3_train_bf16",
+             "tinyllama_train_bf16", "olmo_train_bf16")
+# the training shapes, where the backward's plain replay is timed too
+SWA_REPLAY = ("qwen3_train_bf16", "tinyllama_train_bf16", "olmo_train_bf16")
 # name -> (B, S, H, G, P, N, dtype), chunk 128 (the divisor rule applies)
 SSD_SHAPES = {
     "hymba_bf16": (4, 2048, 50, 1, 64, 16, "bfloat16"),
@@ -2049,9 +2093,14 @@ SSD_SHAPES = {
     "mamba2_130m_bf16": (4, 2048, 24, 1, 64, 128, "bfloat16"),
     "g2_f32": (2, 512, 4, 2, 64, 16, "float32"),
     "s1000_chunk125_f32": (2, 1000, 50, 1, 64, 16, "float32"),
+    # the smoke mamba2's SSM of phase 14's CPU-vs-card step (the full
+    # model trains at mamba2_130m_bf16's shape)
+    "mamba2_smoke_f32": (2, 128, 16, 1, 32, 16, "float32"),
 }
 # the prefill's shape, then N=128, where the look-back moves the most
 SSD_TIMED = ("hymba_bf16", "mamba2_130m_bf16")
+# the training shape, where the backward's plain replay is timed too
+SSD_REPLAY = ("mamba2_130m_bf16",)
 # what the prefill profile matches in device kernel names: #6 launches
 # swa_fwd_bf16_kernel (swa_fwd_f32_kernel in float32), #7
 # ssd_scan_mma_kernel (ssd_scan_f32_kernel)
@@ -2145,12 +2194,27 @@ def phase_swa_kernel(torch, ops, blocks):
                 raise PhaseError(f"the bf16 limit cannot tell these from "
                                  f"the kernel at {name}: {failed}")
             call = lambda: ops.swa_attention(q, k, v, W)
+            if name in SWA_REPLAY:
+                # what a training step's backward runs per layer: the
+                # plain version's forward replayed under autograd and its
+                # gradient (the kernel's backward)
+                qr, kr, vr = (x.detach().requires_grad_(True)
+                              for x in (q, k, v))
+                gout = torch.ones_like(q)
+
+                def replay():
+                    out = ops.swa_attention_plain(qr, kr, vr, W)
+                    torch.autograd.grad(out, (qr, kr, vr), gout)
+                replay_ms = _cuda_ms(torch, replay, 5)
+            else:
+                replay_ms = None
             t = {"shape": [B, S, H, KV, hd, W, dtype],
                  "ms": _cuda_ms(torch, call, 20),
                  "device_ms": _device_ms(torch, call, 10),
                  "plain_ms": _cuda_ms(torch, lambda: ops.swa_attention_plain(
                      q, k, v, W), 5),
                  "library_ms": _cuda_ms(torch, lib, 20),
+                 "bwd_replay_ms": replay_ms,
                  "library_max_abs_err": lib_err,
                  "bf16_steps": steps[name], "control_bf16_steps": controls,
                  **_swa_bound(B, S, H, KV, hd, W, dtype)}
@@ -2173,13 +2237,15 @@ def _ssd_inputs(torch, B, S, H, G, P, N, dtype, seed):
 
 def _ssd_bound(B, S, H, G, P, N, dtype) -> dict:
     """Least time for the scan: x, dt, B, C, A read and y, the state
-    written once, against the recurrent form's arithmetic (4 float32 flops
-    per (step, p, n)) at the CUDA cores' float32 rate."""
+    written once, against the recurrent form's arithmetic (4 flops per
+    (step, p, n)) at the inputs' peak rate: bf16 on the tensor cores (the
+    bf16 kernel's chunk products are mma), float32 on the CUDA cores."""
     esize = 2 if dtype == "bfloat16" else 4
     n_bytes = (esize * (2 * B * S * H * P + 2 * B * S * G * N)
                + 4 * (B * S * H + H + B * H * P * N))
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 4 * B * S * H * P * N / FP32_FLOPS * 1e3
+    ops_ms = 4 * B * S * H * P * N / (BF16_FLOPS if esize == 2
+                                      else FP32_FLOPS) * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms,
             "bytes_ms": bytes_ms,
             "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
@@ -2244,12 +2310,28 @@ def phase_ssd_kernel(torch, ops, blocks):
             del y_r, y_c
         if name in SSD_TIMED:
             call = lambda: ops.ssd_scan(*args, chunk=128)
+            if name in SSD_REPLAY:
+                # what a training step's backward runs per layer: the
+                # plain version's forward replayed under autograd and its
+                # gradient in every input (the kernel's backward)
+                rargs = [a.detach().requires_grad_(True) for a in args]
+
+                def replay():
+                    y, st = blocks.ssd_ref(*rargs, chunk=128)
+                    torch.autograd.grad((y, st), rargs,
+                                        (torch.ones_like(y),
+                                         torch.zeros_like(st)))
+                replay_ms = _cuda_ms(torch, replay, 5)
+                del rargs
+            else:
+                replay_ms = None
             t = {"shape": [B, S, H, G, P, N, dtype],
                  "ms": _cuda_ms(torch, call, 20),
                  "device_ms": _device_ms(torch, call, 10),
                  "plain_ms": _cuda_ms(torch, lambda: blocks.ssd_ref(
                      *args, chunk=128), 5),
-                 "library_ms": None, "bf16_steps": steps[name],
+                 "library_ms": None, "bwd_replay_ms": replay_ms,
+                 "bf16_steps": steps[name],
                  "control_bf16_steps": controls[name],
                  **_ssd_bound(B, S, H, G, P, N, dtype)}
             timings[name] = t
@@ -2440,7 +2522,10 @@ def phase_serve_cross(torch, blocks, swa_ops):
         torch.cuda.empty_cache()
 
         cfg2 = cfg.replace(n_layers=2)
-        p_cpu = api.init(cfg2, prng.PRNGKey(2, device="cpu"))
+        # drawn on the card and copied: the threefry draws of 60 M
+        # parameters take ~50 s on the host's cores
+        p_cpu = tree_map(lambda a: a.cpu(),
+                         api.init(cfg2, prng.PRNGKey(2, device="cuda")))
         tokens = prng.randint(prng.PRNGKey(3, device="cpu"), (2, 256), 0,
                               cfg.vocab_size)
         t0 = time.perf_counter()
@@ -2459,6 +2544,221 @@ def phase_serve_cross(torch, blocks, swa_ops):
         if not out[k] <= 1e-4:
             raise PhaseError(f"{k} = {out[k]} exceeds 1e-4")
     return out
+
+
+# --------------------------------------------------------------------------
+# The LM training path (ROADMAP item 11a): the dense and ssm decoders
+# through launch.train's step, and the federated-LLM twin
+# --------------------------------------------------------------------------
+
+# name -> (arch, batch, seq, steps, smoke); bf16 and adamw throughout, the
+# launcher's cosine schedule. granite-34b runs its smoke variant (in bf16):
+# 34 B bf16 parameters and their adamw moments do not fit one 80 GB card
+LM_TRAIN = {
+    "qwen3-0.6b": ("qwen3-0.6b", 4, 2048, 10, False),
+    "mamba2-130m": ("mamba2-130m", 4, 2048, 10, False),
+    "tinyllama-1.1b": ("tinyllama-1.1b", 4, 2048, 1, False),
+    "olmo-1b": ("olmo-1b", 4, 2048, 1, False),
+    "granite-34b-smoke": ("granite-34b", 4, 2048, 3, True),
+}
+LM_LR = 3e-3                   # launch.train's default
+LM_PROFILED = ("qwen3-0.6b", "mamba2-130m")   # one warm step profiled
+# the archs run through launch.train.main itself (no --device: the card)
+LM_MAIN = ("tinyllama-1.1b", "olmo-1b")
+# a smoke step, CPU vs card: sgd at lr 1, so that the update is the
+# gradient (adamw's first update is lr·g/(|g| + eps), a sign wherever
+# |g| >> eps, which two summation orders can flip near g = 0)
+LM_CROSS = ("qwen3-0.6b", "mamba2-130m")
+LM_CROSS_SHAPE = (2, 128)
+LM_CROSS_TOL = 1e-4
+TWIN_SECURITY = ("none", "otp", "otp_gather", "secagg")
+TWIN_ROUNDS = 2
+
+
+def _lm_mixer_launches(cfg, steps: int) -> dict:
+    """#6 and #7 launches of ``steps`` training steps: 2·L of the arch's
+    own mixer a step (the forward and the per-layer recompute of the
+    backward), none of the other."""
+    own = ("ssd_scan" if cfg.family == "ssm" else "swa_attention")
+    other = ("swa_attention" if own == "ssd_scan" else "ssd_scan")
+    return {own: 2 * cfg.n_layers * steps, other: 0}
+
+
+def _check_lm_launches(name, got: dict, want: dict):
+    """``got`` must launch what ``want`` says and no other kernel."""
+    full = {k: 0 for k in got}
+    full.update(want)
+    if got != full:
+        raise PhaseError(f"{name}: launches {got}, expected {full}")
+
+
+def phase_lm_train(torch, kops):
+    """The LM training path at full width and depth in bf16 on the
+    synthetic corpus (``LM_TRAIN``): ``make_train_step`` under adamw and
+    ``launch.train``'s cosine schedule, the step timed on the host clock
+    around a synchronise, the launches of #6 and #7 read every step (2·L
+    of the arch's own, 0 of the other), the loss finite every step, peak
+    device memory; tinyllama and olmo through ``launch.train.main`` itself
+    with no ``--device``; one warm qwen3 and mamba2 step each under
+    ``torch.profiler``;
+    a smoke step of qwen3 and mamba2 in float32 under sgd at lr 1 on the
+    card against the CPU (loss and every parameter, so every gradient,
+    ≤ 1e-4); and the federated-LLM twin
+    (``repro_torch.examples.llm_federated``) on the card under each
+    security mode, its launches held per round."""
+    from repro_torch import prng
+    from repro_torch.data.tokens import lm_batches, synthetic_corpus
+    from repro_torch.examples import llm_federated
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import get_config, get_model, smoke_variant
+    from repro_torch.nn.optim import cosine_schedule, get_optimizer
+    from repro_torch.nn.pytree import tree_leaves
+    launches, report = {}, {}
+    for name, (arch, B, S, steps, smoke) in LM_TRAIN.items():
+        cfg = get_config(arch)
+        if smoke:
+            cfg = smoke_variant(cfg).replace(dtype="bfloat16")
+        per_step = _lm_mixer_launches(cfg, 1)
+        if arch in LM_MAIN:
+            # the user's entry point, on the card by default
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset(kops)
+            t0 = time.perf_counter()
+            losses = launch_train.main([
+                "--arch", arch, "--steps", str(steps), "--batch", str(B),
+                "--seq", str(S), "--lr", str(LM_LR)])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = _counts(kops)
+            _check_lm_launches(f"lm {name}", got,
+                               _lm_mixer_launches(cfg, steps))
+            r = {"entry": "launch.train.main", "steps": steps,
+                 "run_s_with_init": dt, "losses": losses,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "launches_per_step": {k: got[k] / steps for k in per_step}}
+        else:
+            api = get_model(cfg)
+            key = prng.PRNGKey(0, device="cuda")
+            params = api.init(cfg, key)
+            opt = get_optimizer("adamw", cosine_schedule(LM_LR, steps,
+                                                         warmup=10))
+            opt_state = opt.init(params)
+            step = make_train_step(cfg, api, opt)
+            corpus = synthetic_corpus(max(B * S * 50, 100_000),
+                                      cfg.vocab_size, device="cuda")
+            batches = list(lm_batches(corpus, B, S, steps))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset(kops)
+            losses, step_s = [], []
+            for i, batch in enumerate(batches):
+                t0 = time.perf_counter()
+                before = _counts(kops)
+                params, opt_state, loss = step(params, opt_state, batch, i)
+                losses.append(float(loss))          # synchronises
+                step_s.append(time.perf_counter() - t0)
+                after = _counts(kops)
+                one = {k: after[k] - before[k] for k in after}
+                _check_lm_launches(f"lm {name} step {i}", one, per_step)
+            got = _counts(kops)
+            r = {"entry": "make_train_step", "steps": steps,
+                 "n_params": sum(x.numel() for x in tree_leaves(params)),
+                 "losses": losses, "step_s": step_s,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "launches_per_step": {k: one[k] for k in per_step}}
+            warm = step_s[1:] or step_s
+            r["step_s_warm_mean"] = sum(warm) / len(warm)
+            r["tokens_per_s_warm"] = B * S / r["step_s_warm_mean"]
+            if arch in LM_PROFILED:
+                batch = batches[-1]
+                r["profile"] = _device_profile(
+                    torch, lambda: step(params, opt_state, batch, steps),
+                    kernels=SERVE_KERNEL_NAMES)
+            del params, opt_state, corpus, batches
+        r.update(arch=arch, batch=B, seq=S, dtype=cfg.dtype,
+                 smoke=smoke, n_layers=cfg.n_layers)
+        if not losses or not all(math.isfinite(x) for x in losses):
+            raise PhaseError(f"lm {name}: losses {losses}")
+        launches[f"lm_{name}"] = got
+        report[name] = r
+        print(f"lm train {name}: " + json.dumps(r))
+        torch.cuda.empty_cache()
+
+    # a smoke step in float32, CPU (plain versions) vs card (kernels)
+    from repro_torch.nn.optim import sgd
+    cross = {}
+    for arch in LM_CROSS:
+        cfg = smoke_variant(get_config(arch))
+        api = get_model(cfg)
+        B, S = LM_CROSS_SHAPE
+        corpus = synthetic_corpus(20_000, cfg.vocab_size, device="cpu")
+        batch = next(lm_batches(corpus, B, S, 1, seed=3))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = api.init(cfg, prng.PRNGKey(0, device=dev))
+            opt = sgd(1.0)
+            out[dev] = make_train_step(cfg, api, opt)(
+                params, opt.init(params),
+                {k: v.to(dev) for k, v in batch.items()}, 0)
+        (p_c, _, l_c), (p_g, _, l_g) = out["cpu"], out["cuda"]
+        cross[arch] = {
+            "loss_rel": abs(float(l_g) - float(l_c)) / abs(float(l_c)),
+            "param_max_abs": max((a.cpu() - b).abs().max().item()
+                                 for a, b in zip(tree_leaves(p_g),
+                                                 tree_leaves(p_c)))}
+    print("lm train smoke cpu vs card: " + json.dumps(cross))
+    for arch, c in cross.items():
+        if not (c["loss_rel"] <= LM_CROSS_TOL
+                and c["param_max_abs"] <= LM_CROSS_TOL):
+            raise PhaseError(f"lm smoke step {arch}: card vs CPU {c} "
+                             f"exceeds {LM_CROSS_TOL}")
+    report["smoke_cpu_vs_card"] = cross
+
+    # the federated-LLM twin: per round 4 satellites x E=3 steps of the
+    # 2-layer smoke qwen3 (2·L launches a step) plus the eval forward (L),
+    # and two launches of #4's seeded rows entry under otp and otp_gather
+    twin = {}
+    for sec in TWIN_SECURITY:
+        _reset(kops)
+        t0 = time.perf_counter()
+        out = llm_federated.main(["--rounds", str(TWIN_ROUNDS),
+                                  "--security", sec])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = _counts(kops)
+        cfg = smoke_variant(get_config("qwen3-0.6b"))
+        L = cfg.n_layers
+        want = {"swa_attention": TWIN_ROUNDS * (
+            4 * llm_federated.E * 2 * L + L)}
+        if sec in ("otp", "otp_gather"):
+            want["otp_xor_mac_edges_seeded"] = 2 * TWIN_ROUNDS
+        _check_lm_launches(f"twin {sec}", got, want)
+        rounds = out["rounds"]
+        bad = [m for m in rounds if not (math.isfinite(m["local_loss"])
+                                         and m["local_loss"] < 10.0)]
+        if bad or (sec == "otp_gather"
+                   and not all(m["mac_ok"] for m in rounds)):
+            raise PhaseError(f"twin {sec}: rounds {rounds}")
+        launches[f"twin_{sec}"] = got
+        twin[sec] = {"rounds": rounds, "run_s": dt}
+    # the rows #4's seeded entry takes on the twin's otp paths: one per
+    # satellite, the smoke qwen3's float32 tree in u32 words
+    rows = (tree_leaves(out["state"].params)[0].shape[0],
+            sum(x[0].numel() for x in tree_leaves(out["state"].params)))
+    print(f"lm twin (rows x words {rows}): " + json.dumps(twin))
+    report["twin"] = twin
+    report["twin_otp_rows_words"] = rows
+    # the synthetic corpus is numpy's Zipf stream: its tokens, and so the
+    # losses, follow this machine's numpy
+    import numpy
+    report["numpy"] = numpy.__version__
+    print(f"lm corpus drawn by numpy {numpy.__version__}")
+    for name, c in launches.items():
+        print(f"lm launches {name}: " + json.dumps(
+            {k: v for k, v in c.items() if v}))
+    return launches, report
 
 
 def main() -> int:
@@ -2527,6 +2827,9 @@ def main() -> int:
     prefill_ms = (serve_report["prefill_profile"] or {}).get(
         "ms_per_launch", {})
     phase_serve_cross(torch, blocks, swa_ops)
+    lm_launches, lm_report = phase_lm_train(torch, kops)
+    launches.update(lm_launches)
+    lm_profile = lm_report["qwen3-0.6b"]["profile"] or {}
 
     t = timings["ansatz"]
     entries = [{
@@ -2598,6 +2901,9 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "device_ms": t["device_ms"], "shapes": seeded_timings[name],
+            "lm_twin_rows_words": (lm_report["twin_otp_rows_words"]
+                                   if name == "otp_xor_mac_edges_seeded"
+                                   else None),
             "given_pad": {
                 "name": given, "max_abs_err": otp_err[given],
                 "ms": g["ms"], "device_ms": g["device_ms"],
@@ -2629,6 +2935,11 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
             "prefill_device_ms_per_launch": prefill_ms.get(kernel),
+            "lm_train_qwen3_device_ms_per_launch": lm_profile.get(
+                "ms_per_launch", {}).get(kernel),
+            "lm_train_launches_per_step": {
+                n: r["launches_per_step"][name]
+                for n, r in lm_report.items() if "launches_per_step" in r},
             "shapes": timed})
     for entry in entries:
         # launches as read on every path: the trainer paths, the prefill

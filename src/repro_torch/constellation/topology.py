@@ -97,13 +97,39 @@ def assign_secondaries(trace: ConstellationTrace, t_idx: int):
 
 def isl_routes(trace: ConstellationTrace, t_idx: int, h_max: int = 4,
                l_max_s: float = 0.25):
-    """P_i(t) at one trace step: ``isl_routes_batched`` at that step.
-    Returns (participation (n,) bool, hops (n,), latency_s (n,)), primaries
-    at 0 hops, inf marking unreachable satellites. (The JAX package's
-    function is a BFS over the same graph; where L_max binds on a tie the
-    relaxation can reach a satellite the BFS's visiting order missed.)"""
-    part, hops, lat = isl_routes_batched(trace, [t_idx], h_max, l_max_s)
-    return part[0], hops[0], lat[0]
+    """P_i(t) via BFS over the ISL graph with hop + latency constraints.
+
+    Returns (participation (n_sat,) bool, hops (n_sat,), latency_s (n_sat,)).
+    Primaries have 0 hops; latency accumulates ISL propagation delays.
+
+    The scalar reference, the JAX package's BFS in its visiting order: a
+    satellite keeps the first feasible path it is reached by. The hot path
+    is ``isl_routes_batched``, whose relaxation keeps the least latency
+    over min-hop paths (and so can reach, where L_max binds on a tie, a
+    satellite this visiting order missed).
+    """
+    n = trace.n_sats
+    pos = trace.sat_pos[:, t_idx]
+    isl = trace.ss_access[:, :, t_idx]
+    primaries, _ = partition_roles(trace, t_idx)
+
+    hops = np.full(n, np.inf)
+    lat = np.full(n, np.inf)
+    hops[primaries] = 0
+    lat[primaries] = 0.0
+    frontier = list(primaries)
+    while frontier:
+        nxt = []
+        for u in frontier:
+            for v in np.where(isl[u])[0]:
+                d = np.linalg.norm(pos[u] - pos[v]) / SPEED_OF_LIGHT_KM_S
+                if (hops[u] + 1 < hops[v] and hops[u] + 1 <= h_max
+                        and lat[u] + d <= l_max_s):
+                    hops[v] = hops[u] + 1
+                    lat[v] = lat[u] + d
+                    nxt.append(v)
+        frontier = nxt
+    return np.isfinite(hops), hops, lat
 
 
 def pairwise_distances(pos: np.ndarray) -> np.ndarray:

@@ -140,7 +140,7 @@ def evaluate(api, model_cfg, params, batch) -> tuple[float, float]:
     labels = batch["labels"]
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
-    ll = lf.gather(-1, labels[..., None])[..., 0]
+    ll = lf.gather(-1, labels[..., None].long())[..., 0]
     loss = torch.mean(lse - ll)
     acc = torch.mean((torch.argmax(lf, -1) == labels).to(torch.float32))
     return float(loss), float(acc)

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import prng
-from repro_torch.security.mac import P31, poly_mac_rows
+from repro_torch.security.mac import P31, poly_mac_rows, poly_mac_u32
 from repro_torch.security.otp import layout_rows
 
 _M32 = 0xFFFFFFFF
@@ -29,6 +29,15 @@ def as_storage(words: torch.Tensor) -> torch.Tensor:
     """int64 u32 words -> their int32 bit storage."""
     words = words & _M32
     return (words - ((words >> 31) << 32)).to(torch.int32)
+
+
+def otp_xor_mac_ref(msg_u32, pad_u32, r_key, s_key):
+    """The whole op on one aligned (padded) stream, as the JAX package's
+    ``otp_xor_mac_ref``: XOR, then the security layer's MAC over the
+    ciphertext. u32 words (int64 or int32 storage) -> (ct, tag) as int64
+    u32 words."""
+    ct = as_words(msg_u32) ^ as_words(pad_u32)
+    return ct, poly_mac_u32(ct, r_key, s_key)
 
 
 def otp_xor_mac_rows_ref(msg, pad, r_keys, s_keys, tag_input: bool = False):

@@ -1,24 +1,34 @@
-"""Training driver (port of ``repro.launch.train``, its ``--fl`` path).
+"""Training launcher (port of ``repro.launch.train``).
 
-sat-QFL federated training (``--fl``): the in-graph stacked-satellite
-round (``repro_torch.core.dist``), every satellite a row of one stacked
-axis on one card:
+Two entry modes, both on the GPU unless ``--device cpu`` is given:
 
-    PYTHONPATH=src python -m repro_torch.launch.train --fl --mode sim \\
-        --security otp --rounds 5
+  * LM pretraining on the synthetic corpus, for the dense and ssm archs
+    (and the hybrid hymba-1.5b); ``--smoke`` takes the reduced config:
 
-``--engine host`` runs the host-orchestrated trainer instead (the full
-comm model and Algorithm 2 security) with the constellation-batched
-executor; ``--engine host-perclient`` selects its per-client numerics
-oracle:
+      PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
+          --smoke --steps 50 --batch 8 --seq 128
 
-    PYTHONPATH=src python -m repro_torch.launch.train --fl --engine host \\
-        --mode sim --rounds 5 --sats 32
+    The MoE archs wait for ROADMAP queue 1, item 11b, and the encdec and
+    vlm archs for item 11c: they raise, naming their item.
 
-It runs on the GPU unless ``--device cpu`` is given. The LM pretraining
-path (no ``--fl``) needs the decoder zoo's loss and is not ported yet,
-and so are its flags (``--arch``, ``--smoke``, ``--steps``, ``--seq`` and
-``--optimizer``).
+  * sat-QFL federated training (``--fl``): the in-graph stacked-satellite
+    round (``repro_torch.core.dist``), every satellite a row of one stacked
+    axis on one card:
+
+      PYTHONPATH=src python -m repro_torch.launch.train --fl --mode sim \\
+          --security otp --rounds 5
+
+    ``--engine host`` runs the host-orchestrated trainer instead (the full
+    comm model and Algorithm 2 security) with the constellation-batched
+    executor; ``--engine host-perclient`` selects its per-client numerics
+    oracle:
+
+      PYTHONPATH=src python -m repro_torch.launch.train --fl --engine host \\
+          --mode sim --rounds 5 --sats 32
+
+    The LM path's own flags (``--arch``, ``--smoke``, ``--steps``,
+    ``--seq``, ``--optimizer``) are refused with ``--fl``, which does not
+    read them.
 """
 from __future__ import annotations
 
@@ -30,13 +40,67 @@ import torch
 
 from repro_torch.device import resolve_device
 
-_LM_NOT_PORTED = ("LM pretraining (no --fl) needs the LLM client zoo's "
-                  "loss and training step, which are not ported yet "
-                  "(ROADMAP queue 1, item 11); run with --fl")
+#: the LM path's own flags and their defaults (the JAX launcher's)
+_LM_FLAGS = {"arch": "tinyllama-1.1b", "smoke": False, "steps": 30,
+             "seq": 128, "optimizer": "adamw"}
 
 
 def run_lm(args):
-    raise NotImplementedError(_LM_NOT_PORTED)
+    """LM pretraining: ``--steps`` steps of ``make_train_step`` on
+    ``lm_batches`` of the synthetic corpus under ``--optimizer`` with the
+    JAX launcher's cosine schedule (warmup 10), on ``--device``. Resumes
+    from ``--ckpt-dir`` and saves there a third of the way through.
+    Returns the loss of every step it ran."""
+    from repro_torch import prng
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.tokens import lm_batches, synthetic_corpus
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import get_config, get_model, smoke_variant
+    from repro_torch.nn.optim import cosine_schedule, get_optimizer
+    from repro_torch.nn.pytree import tree_leaves
+
+    dev = resolve_device(getattr(args, "device", None))
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    api = get_model(cfg)
+    params = api.init(cfg, prng.PRNGKey(args.seed, dev))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    print(f"[train] {cfg.name} ({'smoke' if args.smoke else 'full'}): "
+          f"{n_params/1e6:.1f}M params on {dev}")
+
+    opt = get_optimizer(args.optimizer,
+                        cosine_schedule(args.lr, args.steps, warmup=10))
+    opt_state = opt.init(params)
+    corpus = synthetic_corpus(max(args.batch * args.seq * 50, 100_000),
+                              cfg.vocab_size, seed=args.seed, device=dev)
+    step = make_train_step(cfg, api, opt)
+
+    mgr = None
+    start = 0
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir, keep=2)
+        if mgr.latest is not None:
+            (params, opt_state), start, _ = mgr.restore((params, opt_state))
+            print(f"[train] resumed from step {start}")
+
+    t0 = time.time()
+    losses = []
+    for i, batch in enumerate(lm_batches(corpus, args.batch, args.seq,
+                                         args.steps, seed=args.seed)):
+        if i < start:
+            continue
+        params, opt_state, loss = step(params, opt_state, batch, i)
+        losses.append(float(loss))
+        if i % max(args.steps // 10, 1) == 0:
+            print(f"  step {i:4d}  loss {losses[-1]:.4f}  "
+                  f"({(time.time()-t0):.1f}s)")
+        if mgr and (i + 1) % max(args.steps // 3, 1) == 0:
+            mgr.save(i + 1, (params, opt_state), {"loss": losses[-1]})
+    if losses:
+        print(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"({'improved' if losses[-1] < losses[0] else 'NO IMPROVEMENT'})")
+    return losses
 
 
 def run_fl_host(args, cfg, api, fl, trace, sats, server, device=None):
@@ -147,11 +211,19 @@ def run_fl(args):
 
 
 def main(argv=None):
-    """Parse ``argv`` and run; returns the final state of the ``--fl``
-    path (an :class:`FLState`, or the trainer of a host engine)."""
+    """Parse ``argv`` and run; returns the LM path's losses, or the final
+    state of the ``--fl`` path (an :class:`FLState`, or the trainer of a
+    host engine)."""
     ap = argparse.ArgumentParser(description=__doc__)
+    # the LM path's flags default to None here, so that --fl can refuse
+    # them when they are given; run_lm takes _LM_FLAGS' defaults
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--smoke", action="store_true", default=None)
+    ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=None)
     ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--optimizer", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory (resume if present)")
@@ -173,8 +245,15 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
     args = ap.parse_args(argv)
+    given = [f"--{k}" for k in _LM_FLAGS if getattr(args, k) is not None]
     if args.fl:
+        if given:
+            ap.error(f"{', '.join(given)}: LM-path flags, which --fl does "
+                     f"not read")
         return run_fl(args)
+    for k, default in _LM_FLAGS.items():
+        if getattr(args, k) is None:
+            setattr(args, k, default)
     return run_lm(args)
 
 

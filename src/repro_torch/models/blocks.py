@@ -1,10 +1,10 @@
-"""Building blocks of the hybrid decoder (port of ``repro.models.blocks``).
+"""Building blocks of the decoder zoo (port of ``repro.models.blocks``).
 
 Every block comes as an ``*_init`` returning a *stacked* parameter dict
 with a leading layer axis L (the decoder loops over it) and apply
 functions for the two execution modes:
 
-  * ``*_apply``  — full-sequence prefill forward
+  * ``*_apply``  — full-sequence training / prefill forward
   * ``*_decode`` — single-token serve step against a (possibly ring-buffer
     sliding-window) cache
 
@@ -13,13 +13,15 @@ Conventions:
   positions  (B, S) or (B,) absolute int token positions
   window     0 = full causal attention; >0 = sliding window (ring cache)
 
-The prefill runs its two sequence mixers through the hand-written
-kernels: ``attn_apply`` through ``kernels.swa_attention`` and
+The full-sequence forward runs its two sequence mixers through the
+hand-written kernels: ``attn_apply`` through ``kernels.swa_attention`` and
 ``ssm_apply`` through ``kernels.ssd_scan`` (each takes its plain version
-on CPU tensors). Single-token decode is plain torch, as in the JAX
-package. Ported here: the parts the hybrid decoder needs (attention,
-SwiGLU FFN, Mamba-2). Not yet: MoE, cross-attention, the query-chunked
-attention and the int8 KV cache (ROADMAP queue 1, item 11).
+on CPU tensors; each backward replays the plain version). Single-token
+decode is plain torch, as in the JAX package. Ported here: the parts the
+dense, ssm and hybrid decoders need (attention with GQA, MQA and qk-norm,
+SwiGLU FFN, Mamba-2). Not yet: MoE (ROADMAP queue 1, item 11b),
+cross-attention (11c), the query-chunked attention and the int8 KV cache
+(11d).
 """
 from __future__ import annotations
 
@@ -130,7 +132,7 @@ def _sdpa(q, k, v, mask, out_proj):
 
 def attn_apply(p, cfg: ArchConfig, x, positions, *, window: int = 0,
                ctx=None):
-    """Full-sequence causal self-attention (prefill), through
+    """Full-sequence causal self-attention (training / prefill), through
     ``kernels.swa_attention``. The kernel bands by row index, so positions
     must be ``arange(S)`` in every row, as ``decoder.forward_hidden``
     passes them (they also give the rope angles). ``ctx`` is accepted and
@@ -148,7 +150,7 @@ def attn_cache_init(cfg: ArchConfig, L: int | None, batch: int,
     ported yet."""
     if cfg.kv_cache_dtype == "int8":
         raise NotImplementedError("the int8 KV cache is not ported yet "
-                                  "(ROADMAP queue 1, item 11)")
+                                  "(ROADMAP queue 1, item 11d)")
     KV, hd = cfg.n_kv_heads, cfg.hd
     pre = _pre(L)
     return {
@@ -318,7 +320,7 @@ def _causal_conv(u, w, b):
 
 
 def ssm_apply(p, cfg: ArchConfig, x, *, chunk: int = 128):
-    """Full-sequence Mamba-2 mixer (prefill), the scan through
+    """Full-sequence Mamba-2 mixer (training / prefill), the scan through
     ``kernels.ssd_scan``."""
     B, S, d = x.shape
     nh, hd = cfg.ssm_nheads, cfg.ssm_headdim

@@ -1,19 +1,26 @@
-"""Decoder-only language model, serving path (port of ``repro.models.decoder``).
+"""Decoder-only language model (port of ``repro.models.decoder``).
 
 Layers are grouped into *segments*, contiguous runs of identical layers
 whose parameters are stacked along a leading layer axis; the forward and
 the decode step loop over each segment's layers in Python (the JAX
-package scans them). The port serves the hybrid family (parallel
-attention ∥ Mamba-2 heads, then a SwiGLU FFN: ``hymba-1.5b``); the dense
-and ssm kinds of the plan run through the same code, MoE is not ported.
-``loss`` and ``chunked_ce`` wait for the training slice (ROADMAP queue 1,
-item 11). ``ctx`` and ``remat`` are accepted and ignored.
+package scans them). The port trains and serves the dense (attention +
+SwiGLU: tinyllama, olmo, qwen3, granite), ssm (Mamba-2: mamba2-130m) and
+hybrid (parallel attention ∥ Mamba-2 heads, then a SwiGLU FFN: hymba)
+kinds; MoE layers raise (ROADMAP queue 1, item 11b).
+
+Training: ``loss`` is the forward with one ``torch.utils.checkpoint`` per
+layer under ``remat`` (the JAX package's ``jax.checkpoint`` of the scan
+body), so a backward recomputes each layer's forward, and ``chunked_ce``,
+whose chunks recompute their logits in the backward. So a training step
+launches the attention or SSD kernel twice per layer, and the (B, S, V)
+float32 logits never exist whole. ``ctx`` is accepted and ignored.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import prng
 from repro_torch.device import resolve_device
@@ -70,7 +77,7 @@ def segment_plan(cfg: ArchConfig) -> list[SegmentSpec]:
 def _no_moe(seg: SegmentSpec):
     if seg.kind == "moe":
         raise NotImplementedError("MoE layers are not ported yet (ROADMAP "
-                                  "queue 1, item 11)")
+                                  "queue 1, item 11b)")
 
 
 def _layer_init(key, cfg: ArchConfig, seg: SegmentSpec, dtype):
@@ -146,8 +153,19 @@ def _layer_apply(cfg: ArchConfig, seg: SegmentSpec, lp, x, positions, ctx):
 
 
 def _run_segment(cfg, seg, sp, x, positions, ctx, remat: bool):
+    """The segment's layers in order; under ``remat`` (with autograd on)
+    each layer is one non-reentrant checkpoint: its activations are
+    recomputed in the backward, as the JAX package's ``jax.checkpoint``
+    of the scan body does."""
+    remat = remat and torch.is_grad_enabled()
     for i in range(seg.n_layers):
-        x = _layer_apply(cfg, seg, _layer(sp, i), x, positions, ctx)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                lambda x, i=i: _layer_apply(cfg, seg, _layer(sp, i), x,
+                                            positions, ctx),
+                x, use_reentrant=False)
+        else:
+            x = _layer_apply(cfg, seg, _layer(sp, i), x, positions, ctx)
     return x
 
 
@@ -188,9 +206,53 @@ def prefill(cfg: ArchConfig, params, batch, ctx=None):
     return _logits(cfg, params, x[:, -1])
 
 
+def _chunk_nll(cfg: ArchConfig, params, x, labels, mask):
+    """One chunk's summed NLL and weight: its logits, a float32
+    log-sum-exp about the (constant) row max, the label's logit."""
+    lf = _logits(cfg, params, x).to(torch.float32)
+    m = torch.amax(lf, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    w = mask.to(torch.float32)
+    return torch.sum((lse - ll) * w), torch.sum(w)
+
+
+def chunked_ce(cfg: ArchConfig, params, x, labels, mask=None,
+               chunk: int = 1024, ctx=None):
+    """Cross-entropy without ever materialising (B, S, V) logits: S in
+    chunks (the largest divisor of S not above ``chunk``), each chunk's
+    logits and partial NLL under a non-reentrant checkpoint, so the
+    backward recomputes the chunk's logits. Masked positions weigh 0; the
+    mean is over the unmasked ones."""
+    Bb, S, _ = x.shape
+    c = min(chunk, S)
+    while S % c != 0:
+        c -= 1
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=x.device)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    grad = torch.is_grad_enabled()
+    for z in range(0, S, c):
+        args = (x[:, z:z + c], labels[:, z:z + c], mask[:, z:z + c])
+        if grad:
+            t, n = torch.utils.checkpoint.checkpoint(
+                lambda *a: _chunk_nll(cfg, params, *a), *args,
+                use_reentrant=False)
+        else:
+            t, n = _chunk_nll(cfg, params, *args)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
 def loss(cfg: ArchConfig, params, batch, ctx=None):
-    raise NotImplementedError("the decoder's loss (chunked_ce) comes with "
-                              "the training slice (ROADMAP queue 1, item 11)")
+    """Mean next-token cross-entropy of batch {"tokens", "labels" (B, S),
+    optional "mask"} plus the router aux term (zero without MoE)."""
+    x, aux = forward_hidden(cfg, params, batch, ctx)
+    ce = chunked_ce(cfg, params, x, batch["labels"], batch.get("mask"),
+                    ctx=ctx)
+    return ce + cfg.router_aux_weight * aux
 
 
 # =========================================================================

@@ -1,11 +1,14 @@
 """Model registry: arch id -> (config, ModelApi) (port of ``repro.models.registry``).
 
-The port serves the paper's VQC and, through the decoder, the hybrid
-``hymba-1.5b``; every other arch id of the JAX package raises
-``NotImplementedError`` until the rest of the LLM client zoo is ported.
+The port runs the paper's VQC and, through the decoder, the dense
+(tinyllama-1.1b, olmo-1b, qwen3-0.6b, granite-34b), ssm (mamba2-130m) and
+hybrid (hymba-1.5b) families, for training and serving. The MoE archs
+(ROADMAP queue 1, item 11b) and the encdec and vlm archs (item 11c) raise
+``NotImplementedError`` until they are ported.
 """
 from __future__ import annotations
 
+import importlib
 from typing import Callable, NamedTuple
 
 from repro_torch.models.config import ArchConfig
@@ -21,13 +24,23 @@ class ModelApi(NamedTuple):
     shift_grad: Callable | None = None     # parameter-shift gradient rule
     prefill: Callable | None = None        # (cfg, params, batch, ctx=None)
                                            # -> next-token logits (B, Vp)
+    client_axis_loss: bool = False         # loss takes the client axis
+                                           # (core/gradients.py)
 
 
-ARCH_IDS = ["vqc-satqfl", "hymba-1.5b"]
+ARCH_IDS = ["vqc-satqfl", "hymba-1.5b", "tinyllama-1.1b", "olmo-1b",
+            "qwen3-0.6b", "granite-34b", "mamba2-130m"]
 
-_NOT_PORTED = ("this part of the LLM client zoo is not ported yet (ROADMAP "
-               "queue 1, item 11); the port serves " + ", ".join(
-                   repr(a) for a in ARCH_IDS))
+#: the JAX package's arch ids the port has not ported yet, by ROADMAP item
+_NOT_PORTED = {"qwen3-moe-235b-a22b": "11b", "deepseek-moe-16b": "11b",
+               "whisper-tiny": "11c", "llama-3.2-vision-90b": "11c"}
+_FAMILY_ITEM = {"moe": "11b", "encdec": "11c", "vlm": "11c"}
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue 1, item {item}); the port "
+        f"runs " + ", ".join(repr(a) for a in ARCH_IDS))
 
 
 def _decoder_api() -> ModelApi:
@@ -37,24 +50,27 @@ def _decoder_api() -> ModelApi:
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id == "vqc-satqfl":
-        from repro_torch.configs.vqc_satqfl import CONFIG
-        return CONFIG
-    if arch_id == "hymba-1.5b":
-        from repro_torch.configs.hymba_1_5b import CONFIG
-        return CONFIG
-    raise NotImplementedError(f"{arch_id!r}: {_NOT_PORTED}")
+    if arch_id in _NOT_PORTED:
+        raise _not_ported(repr(arch_id), _NOT_PORTED[arch_id])
+    if arch_id not in ARCH_IDS:
+        raise ValueError(f"unknown arch {arch_id!r}")
+    mod = importlib.import_module(
+        "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))
+    return mod.CONFIG
 
 
 def get_model(cfg_or_id) -> ModelApi:
     if isinstance(cfg_or_id, str):
         cfg_or_id = get_config(cfg_or_id)
-    if cfg_or_id.family == "vqc":
+    family = cfg_or_id.family
+    if family == "vqc":
         from repro_torch.quantum.vqc import vqc_api
         return vqc_api()
-    if cfg_or_id.family == "hybrid":
+    if family in ("dense", "ssm", "hybrid"):
         return _decoder_api()
-    raise NotImplementedError(f"family {cfg_or_id.family!r}: {_NOT_PORTED}")
+    if family in _FAMILY_ITEM:
+        raise _not_ported(f"family {family!r}", _FAMILY_ITEM[family])
+    raise ValueError(f"unknown family {family!r}")
 
 
 def list_archs() -> list[str]:

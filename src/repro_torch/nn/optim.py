@@ -19,7 +19,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.nn.pytree import tree_leaves, tree_map
+from repro_torch.nn.pytree import tree_leaves, tree_map, tree_unflatten
 
 
 class OptState(NamedTuple):
@@ -147,18 +147,13 @@ def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             return ((p.to(torch.float32) - eta * step_).to(p.dtype),
                     mf.to(moment_dtype), vf.to(moment_dtype))
 
-        out = tree_map(upd, params, grads, state.slots["m"], state.slots["v"])
-        return _pick(out, 0), OptState(slots={"m": _pick(out, 1),
-                                              "v": _pick(out, 2)})
+        out = [upd(*leaves) for leaves in zip(
+            tree_leaves(params), tree_leaves(grads),
+            tree_leaves(state.slots["m"]), tree_leaves(state.slots["v"]))]
+        pick = lambda i: tree_unflatten(params, [o[i] for o in out])
+        return pick(0), OptState(slots={"m": pick(1), "v": pick(2)})
 
     return Optimizer(init=init, update=update, name="adamw")
-
-
-def _pick(tree, i: int):
-    """Select element ``i`` of the per-leaf output triples of a tree."""
-    if isinstance(tree, dict):
-        return {k: _pick(v, i) for k, v in tree.items()}
-    return tree[i]
 
 
 def get_optimizer(name: str, lr) -> Optimizer:

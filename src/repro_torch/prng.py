@@ -134,8 +134,8 @@ def _poly32(x: torch.Tensor, coeffs: tuple) -> torch.Tensor:
 
 
 # Cephes' logf, XLA's CPU float32 log: x = m − 1 for the mantissa m in
-# [√½, √2), then x − x²/2 + x³·P(x) + e·ln 2 (ln 2 split in two), every
-# multiply and add rounded on its own
+# [√½, √2), then x − x²/2 + x³·P(x) + e·ln 2 (ln 2 split in two), the
+# polynomial and the final sums in fused multiply-adds
 _LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
           -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
           2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
@@ -143,8 +143,8 @@ _F32_NOT_EXPONENT = -2139095041             # 0x807FFFFF as int32
 
 
 def _log32(x: torch.Tensor) -> torch.Tensor:
-    """XLA's CPU float32 ``log`` for positive finite x, op for op (1 ulp
-    from XLA's on 0.05% of inputs)."""
+    """XLA's CPU float32 ``log`` for positive finite x, op for op (equal
+    to XLA's on 2.2·10^6 inputs over [10^-4, 100])."""
     b = torch.clamp(x, min=2.0 ** -126).view(torch.int32)
     m = ((b & _F32_NOT_EXPONENT) | 0x3F000000).view(torch.float32)
     e = ((b >> 23) - 127).to(torch.float32) + 1.0
@@ -153,12 +153,14 @@ def _log32(x: torch.Tensor) -> torch.Tensor:
     e = e - low.to(torch.float32)
     x2 = x * x
     x3 = x2 * x
-    p = _LOG_P
-    y = (x * p[0] + p[1]) * x + p[2]
-    y1 = (x * p[3] + p[4]) * x + p[5]
-    y2 = (x * p[6] + p[7]) * x + p[8]
-    y = ((y * x3 + y1) * x3 + y2) * x3 + e * -2.12194440e-4
-    return ((x - x2 * 0.5) + y) + e * 0.693359375
+    p = [float(np.float32(c)) for c in _LOG_P]
+    y = _fma32(_fma32(torch.full_like(x, p[0]), x, p[1]), x, p[2])
+    y1 = _fma32(_fma32(torch.full_like(x, p[3]), x, p[4]), x, p[5])
+    y2 = _fma32(_fma32(torch.full_like(x, p[6]), x, p[7]), x, p[8])
+    y = _fma32(_fma32(y, x3, y1.double()), x3, y2.double())
+    y = _fma32(y, x3, (e * -2.12194440e-4).double())
+    r = _fma32(x2, torch.full_like(x, -0.5), x.double()) + y
+    return _fma32(e, torch.full_like(x, 0.693359375), r.double())
 
 
 # Cephes' log1p below √2 − 1, XLA's: x − x²/2 + x³·P(x)/Q(x)
@@ -195,10 +197,13 @@ _ERFINV_HI = (-0.000200214257, 0.000100950558, 0.00134934322,
 def erfinv(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``erf_inv`` (``torch.erfinv`` is another function,
     up to 63 ulp away): Giles' polynomial with fused multiply-adds, on
-    ``log1p``. Within 2 ulp of ``jax.lax.erf_inv``."""
+    ``log1p``. Equal to XLA's CPU ``jax.lax.erf_inv`` on 2·10^6 inputs
+    over (−1, 1); the tests hold it within 2 ulp."""
     w = -log1p(-x * x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    # XLA's float32 sqrt is correctly rounded and torch's CPU one is not
+    # always: the float64 root rounded once to float32 is
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
     # python-float coefficients select as float32 constants
     p = torch.where(lt, _ERFINV_LO[0], _ERFINV_HI[0])
     for lo, hi in zip(_ERFINV_LO[1:], _ERFINV_HI[1:]):
@@ -214,9 +219,31 @@ _SQRT2_F32 = float(np.float32(math.sqrt(2)))
 
 def normal(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``uniform`` on [nextafter(−1, 0),
-    1) through ``sqrt(2) · erfinv``. The uniform bits are JAX's; the values
-    are within 2 ulp of JAX's (see ``erfinv``)."""
+    1) through ``sqrt(2) · erfinv``. The uniform bits are JAX's, and the
+    values JAX's CPU values (see ``erfinv``)."""
     return erfinv(uniform(key, shape, _NEXT_ABOVE_M1, 1.0)) * _SQRT2_F32
+
+
+#: erf(±2/√2) in float32, the bounds of ``truncated_normal``'s uniform at
+#: ±2σ (XLA's float32 erf gives the correctly rounded value there)
+_ERF_2_OVER_SQRT2 = float(np.float32(0.9544997215270996))
+
+
+def truncated_normal(key: torch.Tensor, lower: float, upper: float,
+                     shape: tuple) -> torch.Tensor:
+    """``jax.random.truncated_normal`` in float32 at the ±2σ bounds the
+    models use, as ``jax._src.random._truncated_normal`` computes it:
+    ``uniform`` on [erf(lower/√2), erf(upper/√2)), then ``√2 · erfinv``,
+    clipped to ``nextafter`` of each bound toward 0. The uniform bits are
+    JAX's, and the values JAX's CPU values (see ``erfinv``)."""
+    if (float(lower), float(upper)) != (-2.0, 2.0):
+        raise ValueError(f"truncated_normal takes the ±2 bounds of the "
+                         f"models' initializers, got ({lower}, {upper})")
+    u = uniform(key, shape, -_ERF_2_OVER_SQRT2, _ERF_2_OVER_SQRT2)
+    out = erfinv(u) * _SQRT2_F32
+    lo = float(np.nextafter(np.float32(lower), np.float32(np.inf)))
+    hi = float(np.nextafter(np.float32(upper), np.float32(-np.inf)))
+    return torch.clamp(out, lo, hi)
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: tuple) -> torch.Tensor:

@@ -386,4 +386,4 @@ def vqc_api():
         return logits, torch.zeros((), device=logits.device)
 
     return ModelApi(vqc_init, fwd, vqc_loss, _no_serve, _no_serve,
-                    shift_grad=parameter_shift_grad)
+                    shift_grad=parameter_shift_grad, client_axis_loss=True)

@@ -6,8 +6,10 @@ built by the JAX package, read by both); the statevector gates within
 1e-6 and ``sample_measure``'s outcomes equal; ``qber_estimate`` and
 ``encrypt_flat_u32`` bit for bit; the tree helpers exactly; the LM loss
 and the GELU MLP within 1e-6; ``prng.normal`` within 2 ulp of
-``jax.random.normal``; and every name the JAX package's ``nn``,
-``quantum``, ``security``, ``constellation`` and ``core`` export.
+``jax.random.normal``; every name the JAX package's ``nn``,
+``quantum``, ``security``, ``constellation``, ``core``, ``kernels``,
+``configs`` and ``data`` export; and the kernel exports in the JAX call
+forms.
 """
 import dataclasses
 import importlib
@@ -51,20 +53,25 @@ def test_topology_matches_jax(traces):
         assert tcon.assign_secondaries(tt, t) == jcon.assign_secondaries(jt,
                                                                          t)
         for kw in ({}, dict(h_max=2, l_max_s=0.05), dict(h_max=1)):
+            # the scalar oracle: the JAX package's BFS, reach, hops and
+            # latency all equal
             part, hops, lat = tcon.isl_routes(tt, t, **kw)
-            # the single step of the batched relaxation, exactly
-            bp, bh, bl = tcon.isl_routes_batched(tt, [t], **kw)
-            for x, y in ((part, bp), (hops, bh), (lat, bl)):
-                np.testing.assert_array_equal(x, y[0])
-            # reach and hops equal to the JAX package's BFS; the latency
-            # is the least over min-hop paths (the JAX relaxation's, to
-            # its float32 distances), never above the BFS's first-found
             jp, jh, jl = jcon.isl_routes(jt, t, **kw)
-            np.testing.assert_array_equal(part, jp)
-            np.testing.assert_array_equal(hops, jh)
-            np.testing.assert_allclose(
-                lat, jcon.isl_routes_batched(jt, [t], **kw)[2][0], rtol=1e-6)
-            assert (lat[part] <= jl[part] * (1 + 1e-6)).all()
+            for x, y in ((part, jp), (hops, jh), (lat, jl)):
+                np.testing.assert_array_equal(x, y)
+            # the batched relaxation against the JAX relaxation (to its
+            # float32 distances), and against the oracle: the same reach
+            # and hops where L_max is slack, a latency never above the
+            # BFS's first-found one
+            bp, bh, bl = (a[0] for a in tcon.isl_routes_batched(tt, [t],
+                                                                 **kw))
+            jbp, jbh, jbl = (a[0] for a in jcon.isl_routes_batched(jt, [t],
+                                                                   **kw))
+            np.testing.assert_array_equal(bp, jbp)
+            np.testing.assert_array_equal(bh, jbh)
+            np.testing.assert_allclose(bl, jbl, rtol=1e-6)
+            assert (bp >= part).all()
+            assert (bl[part] <= lat[part] * (1 + 1e-6)).all()
     for sat in range(0, jt.n_sats, 5):
         assert tcon.access_windows(tt, sat) == jcon.access_windows(jt, sat)
         assert (tcon.access_windows(tt, sat, ground=0)
@@ -251,7 +258,8 @@ NOT_YET = {"core": {"fl_input_specs"}}
 
 
 @pytest.mark.parametrize("pkg", ["nn", "quantum", "security",
-                                 "constellation", "core"])
+                                 "constellation", "core", "kernels",
+                                 "configs", "data"])
 def test_reexports_present(pkg):
     jax_mod = importlib.import_module(f"repro.{pkg}")
     port_mod = importlib.import_module(f"repro_torch.{pkg}")
@@ -260,3 +268,37 @@ def test_reexports_present(pkg):
     assert not missing, sorted(missing)
     for name in port_mod.__all__:
         assert hasattr(port_mod, name), name
+
+
+def test_kernel_exports_take_the_jax_call_forms():
+    """``repro_torch.kernels``' gate ops take a complex state and (…, 2, 2)
+    gates as ``repro.kernels``' do (JAX in Pallas interpret mode, as its
+    own tests run it), within 1e-6; ``otp_xor_mac_ref`` is JAX's, bit for
+    bit."""
+    import repro.kernels as jk
+    from repro.kernels.otp_xor.ref import otp_xor_mac_ref as j_ref
+    import repro_torch.kernels as tk
+    from repro_torch.kernels.otp_xor.ref import otp_xor_mac_ref as t_ref
+
+    nq = 5
+    js, ts = _states(nq, 3, 21)
+    rng = np.random.default_rng(22)
+    # unitary gates (a layer of the VQC's kind), so amplitudes stay ≤ 1
+    gates = np.linalg.qr(rng.standard_normal((nq, 2, 2))
+                         + 1j * rng.standard_normal((nq, 2, 2)))[0]
+    gates = gates.astype(np.complex64)
+    got = tk.apply_gate_layer(ts, torch.tensor(gates))
+    assert got.dtype == torch.complex64 and got.shape == ts.shape
+    _close(got, jk.apply_gate_layer(js, jnp.asarray(gates)))
+    for q in (0, 3):
+        _close(tk.apply_gate(ts[0], torch.tensor(gates[q]), q),
+               jk.apply_gate(js[0], jnp.asarray(gates[q]), q))
+    msg = rng.integers(0, 2 ** 32, 300, dtype=np.uint32)
+    pad = rng.integers(0, 2 ** 32, 300, dtype=np.uint32)
+    # jitted: the eager JAX MAC takes 10-20 s a stream length
+    ct_j, tag_j = jax.jit(j_ref)(jnp.asarray(msg), jnp.asarray(pad),
+                                 jnp.uint32(12345), jnp.uint32(678))
+    ct_t, tag_t = t_ref(torch.tensor(msg.astype(np.int64)),
+                        torch.tensor(pad.astype(np.int64)), 12345, 678)
+    np.testing.assert_array_equal(ct_t.numpy(), np.asarray(ct_j))
+    assert int(tag_t) == int(tag_j)

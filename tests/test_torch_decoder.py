@@ -187,9 +187,10 @@ def test_init_cache_shapes_match_jax(smoke):
 
 
 def test_init_matches_jax_structure(smoke):
-    """The port's init gives JAX's tree, shapes and dtypes (the draws come
-    from torch generators, so values differ), at the smoke size and, on
-    the meta device, at full size (1.64 B parameters)."""
+    """The port's init gives JAX's tree, shapes and dtypes at the smoke
+    size and, on the meta device, at full size (1.64 B parameters); the
+    values are JAX's too (``tests/test_torch_init.py``). The ModelApi's
+    loss is the decoder's, JAX's loss on the same weights and batch."""
     cfg_j, cfg_t, params_j, _ = smoke
     got = tD.init(cfg_t, prng.PRNGKey(0, device="cpu"))
     assert (jax.tree_util.tree_structure(jax.tree_util.tree_map(
@@ -203,5 +204,11 @@ def test_init_matches_jax_structure(smoke):
     assert 1.6e9 < n < 1.7e9
     api = get_model(cfg_t)
     assert api.init is tD.init and api.decode_step is tD.decode_step
-    with pytest.raises(NotImplementedError, match="item 11"):
-        api.loss(cfg_t, got, {})
+    assert api.loss is tD.loss
+    tokens = _tokens(cfg_j, 2, 24, 11)
+    labels = _tokens(cfg_j, 2, 24, 12)
+    want = float(jD.loss(cfg_j, params_j, {"tokens": jnp.asarray(tokens),
+                                           "labels": jnp.asarray(labels)}))
+    got = float(api.loss(cfg_t, smoke[3], {"tokens": torch.tensor(tokens),
+                                           "labels": torch.tensor(labels)}))
+    assert abs(got - want) <= TOL * abs(want)

@@ -463,7 +463,8 @@ def test_trainer_raises_when_the_kernel_cannot_launch(monkeypatch):
 # the seeded body's trees: name -> (rows, leaves as (dtype, row shape) in
 # flatten order): the trainer's VQC tree, a mixed-width tree, a multi-block
 # tree, the (64, 2^20) f32 and bf16 leaves, an empty leaf and odd 16-bit
-# leaves across block edges, and 300 leaves spread over several blocks
+# leaves across block edges, 300 leaves spread over several blocks, and
+# the federated-LLM twin's 4 rows of the smoke qwen3-0.6b tree (its init)
 SEEDED_TREES = {
     "vqc_stage": (64, [("float32", (7,)), ("float32", (3, 8)),
                        ("float32", (3, 8)), ("float32", (7,))]),
@@ -478,11 +479,19 @@ SEEDED_TREES = {
                   ("float16", (1,))]),
     "many_leaves": (2, [("bfloat16" if i % 3 else "float32", (17 + i,))
                         for i in range(300)]),
+    "llm_twin": (4, "qwen3_smoke"),
 }
 
 
 def _seeded_tree(name):
     E, spec = SEEDED_TREES[name]
+    if spec == "qwen3_smoke":
+        from repro_torch import prng
+        from repro_torch.models import get_config, get_model, smoke_variant
+        from repro_torch.nn.pytree import tree_map
+        cfg = smoke_variant(get_config("qwen3-0.6b"))
+        tree = get_model(cfg).init(cfg, prng.PRNGKey(0, device="cuda"))
+        return E, tree_map(lambda v: v.expand((E,) + v.shape), tree)
     return E, {f"l{i:03d}": torch.zeros((E,) + shape,
                                         dtype=getattr(torch, dt),
                                         device="cuda")
@@ -1177,3 +1186,83 @@ def _all_launches() -> dict:
     return {"layer": ops.LAUNCHES, "tiled": ops.TILED_LAUNCHES,
             "gate_1q": ops.GATE_LAUNCHES, "layer_bwd": ops.LAYER_BWD_LAUNCHES,
             **otp_ops.LAUNCHES}
+
+
+# --------------------------------------------------------------------------
+# the LM training path (dense and ssm decoders)
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (1, 512, 32, 4, 64),          # tinyllama-1.1b: GQA 32/4
+    (1, 512, 16, 16, 128),        # olmo-1b: MHA 16/16, hd 128
+    (1, 512, 48, 1, 128),         # granite-34b: MQA
+    (2, 64, 4, 1, 64),            # granite's smoke variant
+])
+def test_swa_kernel_matches_plain_at_training_shapes(B, S, H, KV, hd, dtype):
+    """Full causal attention at the dense archs' head layouts: the kernel
+    == the plain version (f32 ≤ 2e-5; bf16 within one bf16 step), and its
+    gradients (the plain version's replay) equal the plain version's."""
+    _need_cuda()
+    q, k, v = _swa_inputs(B, S, H, KV, hd, dtype, seed=H + KV)
+    before = swa_ops.LAUNCHES
+    got = swa_ops.swa_attention(q, k, v, 0)
+    assert swa_ops.LAUNCHES == before + 1
+    want = swa_ops.swa_attention_plain(q, k, v, 0)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 2e-5
+    else:
+        assert bf16_steps(got, want) <= 1.0
+    w = torch.randn(q.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1)).to(dtype)
+    grads = []
+    for fn in (swa_ops.swa_attention, swa_ops.swa_attention_plain):
+        args = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        (fn(*args, 0).float() * w.float()).sum().backward()
+        grads.append([a.grad for a in args])
+    for a, b in zip(*grads):
+        assert ((a.float() - b.float()).abs().max().item()
+                <= 1e-5 * max(1.0, b.float().abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "olmo-1b", "qwen3-0.6b",
+                                  "granite-34b", "mamba2-130m"])
+def test_lm_train_step_card_matches_cpu(arch):
+    """One train step of the smoke variant in float32 under sgd at lr 1
+    (the update is the gradient; adamw's first update is a sign), on the
+    card (the kernels) and on the CPU (their plain versions) from the
+    same key and batch: loss and every parameter ≤ 1e-4. The step launches
+    the arch's sequence-mixer kernel 2·L times (forward and the per-layer
+    recompute) and the other one never."""
+    _need_cuda()
+    from repro_torch import prng
+    from repro_torch.data.tokens import lm_batches, synthetic_corpus
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import get_config, get_model, smoke_variant
+    from repro_torch.nn.optim import sgd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_variant(get_config(arch))
+    api = get_model(cfg)
+    corpus = synthetic_corpus(20_000, cfg.vocab_size, device="cpu")
+    batch = next(lm_batches(corpus, 2, 64, 1, seed=3))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = api.init(cfg, prng.PRNGKey(0, dev))
+        opt = sgd(1.0)
+        step = make_train_step(cfg, api, opt)
+        swa_ops.LAUNCHES = ssd_ops.LAUNCHES = 0
+        out[dev] = step(params, opt.init(params),
+                        {k: v.to(dev) for k, v in batch.items()}, 0)
+        launches = (swa_ops.LAUNCHES, ssd_ops.LAUNCHES)
+    want = ((0, 2 * cfg.n_layers) if cfg.family == "ssm"
+            else (2 * cfg.n_layers, 0))
+    assert launches == want
+    (p_c, _, l_c), (p_g, _, l_g) = out["cpu"], out["cuda"]
+    assert abs(float(l_g) - float(l_c)) <= 1e-4 * abs(float(l_c))
+    for a, b in zip(tree_leaves(p_g), tree_leaves(p_c)):
+        assert (a.cpu() - b).abs().max().item() <= 1e-4
