@@ -146,12 +146,15 @@ all at once) and then:
    qwen3-0.6b's hd 128 with GQA 16/8, and S=1000 with W=100, W > S and
    S=1, and at the LM training path's full causal shapes (4 x 2048 tokens:
    qwen3 in bf16 and f32, tinyllama's GQA 32/4, olmo's MHA at hd 128,
-   granite's MQA; the smoke steps' f32 shapes); times the kernel (CUDA events, back to back and on the device
-   alone), the plain version and
+   granite's MQA; the smoke steps' f32 shapes) and at phase 15's MoE
+   prefill shapes (qwen3-moe-235b-a22b's GQA 64/4 at hd 128 in bf16 and
+   f32; deepseek-moe-16b's MHA 16/16 at hd 128 is olmo's shape); times
+   the kernel (CUDA events, back to back and on the device alone), the
+   plain version and
    SDPA with a boolean band mask (the library yardstick, used nowhere in
-   the port) at hymba's shapes and the three full-width training shapes,
-   where SDPA and the XLA path's bf16 softmax (``blocks._sdpa_core``)
-   must fail the bf16 limit;
+   the port) at hymba's shapes, the three full-width training shapes and
+   qwen3-moe's, where in bf16 SDPA and the XLA path's bf16 softmax
+   (``blocks._sdpa_core``) must fail the bf16 limit;
 11. holds the SSD scan kernel (one launch over (batch, head, chunk)
    blocks) against its plain version (y and state ≤ 3e-5 in f32; y within
    one bf16 step of each element in bf16, which the plain version fed dt
@@ -177,19 +180,38 @@ all at once) and then:
    qwen3-0.6b and mamba2-130m at full width and depth, 4 x 2048 tokens,
    10 steps each through ``make_train_step``; tinyllama-1.1b and olmo-1b
    one full-width step each through ``launch.train.main`` with no
-   ``--device``; granite-34b's smoke variant (in bf16) 3 steps. Every
-   step must launch #6 (dense) or #7 (ssm) exactly 2·L times (forward
-   and the per-layer recompute of the backward) and no other kernel, with
-   a finite loss; it prints each arch's seconds per step, tokens per
-   second, peak device memory and losses, and profiles one warm qwen3
-   step and one mamba2 step. Then a smoke step of qwen3 and mamba2 in f32 under sgd at lr 1,
+   ``--device``; granite-34b's smoke variant (in bf16) 3 steps;
+   deepseek-moe-16b at full width cut to 4 layers (1 dense, 3 MoE) 3
+   steps, whose loss must be the chunked cross-entropy plus 0.01 times a
+   positive router aux. Every
+   step must launch #6 (dense, moe) or #7 (ssm) exactly 2·L times
+   (forward and the per-layer recompute of the backward) and no other
+   kernel, with a finite loss; it prints each arch's seconds per step,
+   tokens per second, peak device memory and losses, and profiles one
+   warm qwen3 step and one mamba2 step. Then a smoke step of qwen3,
+   mamba2 and deepseek-moe-16b in f32 under sgd at lr 1,
    card vs CPU (loss and every parameter, so every gradient, ≤ 1e-4), and
    the federated-LLM twin
    (``repro_torch.examples.llm_federated``, the smoke qwen3 on 4
    satellites) on the card under none, otp, otp_gather and secagg, 2
    rounds each, with its launches held per round (#6 4·3·2·L + L, the
    seeded OTP rows entry 2 under otp and otp_gather) and otp_gather's
-   MAC check passing.
+   MAC check passing;
+15. serves the MoE decoders (ROADMAP item 11b) in bf16 from random
+   weights of seed 0 (``MOE_SERVE``): deepseek-moe-16b at full width and
+   depth (16.4 B parameters) and qwen3-moe-235b-a22b at full width cut to
+   4 layers (11.2 B; 94 layers do not fit one card), each initialised
+   (timed: the slab draws of ``nn.init``) and freed after: one
+   ``make_prefill_step`` over 4 x 2048 tokens, which must launch #6 once
+   a layer at W=0 and no other kernel (28; 4), profiled; deepseek also
+   ``generate``s 4 requests of 16 prompt and 32 new tokens, launching no
+   kernel, with one decode step profiled. Then deepseek in f32 at full
+   width cut to 4 layers, TF32 off: the prefill of 2 x 2048 tokens with
+   #6 against its plain version (rel ≤ 1e-4), forward vs decode-stepped
+   logits over 64 tokens at capacity 16 (rel < 2e-3), and a 2-layer
+   prefill of 2 x 256 tokens on the CPU against the card (rel ≤ 1e-4);
+   each pair's routed experts compared layer by layer and the entries
+   that differ (near ties) counted.
 
 It prints one ``{"kernels": [...]}`` line (the layer backward as
 ``statevec_gate_layer_bwd`` beside the seven ported TPU kernels; #4 and #5
@@ -198,7 +220,9 @@ as the OTP kernel's seeded entries, each with its given-pad body under
 line, and as its last
 line ``{"ok": true, "device": {...}}``. Each kernel's ``launches_by_path``
 covers the trainer paths, the in-graph paths (``dist_*``), serving, the
-LM training runs (``lm_*``) and the twin (``twin_*``).
+LM training runs (``lm_*``), the twin (``twin_*``) and the MoE serving
+paths (``serve_moe_*``); #6's entry carries the MoE readings under
+``moe``.
 Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result. Any failed phase exits
 non-zero.
@@ -2080,9 +2104,17 @@ SWA_SHAPES = {
     "granite_smoke_train_bf16": (4, 2048, 4, 1, 64, 0, "bfloat16"),
     "qwen3_smoke_f32": (2, 128, 4, 2, 32, 0, "float32"),
     "qwen3_twin_f32": (4, 64, 4, 2, 32, 0, "float32"),
+    # the MoE prefills of phase 15: qwen3-moe-235b-a22b's GQA 64/4 at hd
+    # 128 (deepseek-moe-16b's MHA 16/16 at hd 128 is olmo_train_bf16's
+    # shape), and the smoke deepseek's of phase 14's CPU-vs-card step (f32,
+    # MHA 4/4 at hd 64)
+    "qwen3_moe_bf16": (4, 2048, 64, 4, 128, 0, "bfloat16"),
+    "qwen3_moe_f32": (4, 2048, 64, 4, 128, 0, "float32"),
+    "deepseek_smoke_f32": (2, 128, 4, 4, 64, 0, "float32"),
 }
 SWA_TIMED = ("hymba_w1024_bf16", "hymba_w0_bf16", "qwen3_train_bf16",
-             "tinyllama_train_bf16", "olmo_train_bf16")
+             "tinyllama_train_bf16", "olmo_train_bf16", "qwen3_moe_bf16",
+             "qwen3_moe_f32")
 # the training shapes, where the backward's plain replay is timed too
 SWA_REPLAY = ("qwen3_train_bf16", "tinyllama_train_bf16", "olmo_train_bf16")
 # name -> (B, S, H, G, P, N, dtype), chunk 128 (the divisor rule applies)
@@ -2145,9 +2177,9 @@ def _bf16_steps(torch, got, want) -> float:
 def phase_swa_kernel(torch, ops, blocks):
     """Kernel #6 against its plain version at every listed shape; timings
     of the kernel, the plain version and SDPA with a boolean band mask (the
-    library yardstick, called nowhere in the port) at the prefill's. There,
-    two controls must fail the bf16 limit that the kernel meets: SDPA and
-    the XLA path's bf16 softmax (``blocks._sdpa_core``)."""
+    library yardstick, called nowhere in the port) at the timed shapes.
+    There, in bf16, two controls must fail the bf16 limit that the kernel
+    meets: SDPA and the XLA path's bf16 softmax (``blocks._sdpa_core``)."""
     F = torch.nn.functional
     worst, timings = {"float32": 0.0, "bfloat16": 0.0}, {}
     steps = {}
@@ -2180,19 +2212,23 @@ def phase_swa_kernel(torch, ops, blocks):
                 qh, kh, vh, attn_mask=band, enable_gqa=True)
             lib_out = lib().transpose(1, 2)
             lib_err = (lib_out.float() - want.float()).abs().max().item()
-            kk, vv = ops.repeat_kv(k, H), ops.repeat_kv(v, H)
-            controls = {"sdpa": _bf16_steps(torch, lib_out, want),
-                        "xla_bf16_softmax": _bf16_steps(
-                            torch, blocks._sdpa_core(q, kk, vv,
-                                                     band[None, None]),
-                            want)}
-            del lib_out, kk, vv
-            print(f"swa bf16 controls {name}: bf16_steps " +
-                  json.dumps(controls))
-            failed = {c: r for c, r in controls.items() if not r > 1.0}
-            if failed:
-                raise PhaseError(f"the bf16 limit cannot tell these from "
-                                 f"the kernel at {name}: {failed}")
+            controls = None
+            if dtype == "bfloat16":
+                kk, vv = ops.repeat_kv(k, H), ops.repeat_kv(v, H)
+                controls = {"sdpa": _bf16_steps(torch, lib_out, want),
+                            "xla_bf16_softmax": _bf16_steps(
+                                torch, blocks._sdpa_core(q, kk, vv,
+                                                         band[None, None]),
+                                want)}
+                del kk, vv
+                print(f"swa bf16 controls {name}: bf16_steps " +
+                      json.dumps(controls))
+                failed = {c: r for c, r in controls.items()
+                          if not r > 1.0}
+                if failed:
+                    raise PhaseError(f"the bf16 limit cannot tell these "
+                                     f"from the kernel at {name}: {failed}")
+            del lib_out
             call = lambda: ops.swa_attention(q, k, v, W)
             if name in SWA_REPLAY:
                 # what a training step's backward runs per layer: the
@@ -2216,7 +2252,8 @@ def phase_swa_kernel(torch, ops, blocks):
                  "library_ms": _cuda_ms(torch, lib, 20),
                  "bwd_replay_ms": replay_ms,
                  "library_max_abs_err": lib_err,
-                 "bf16_steps": steps[name], "control_bf16_steps": controls,
+                 "bf16_steps": steps.get(name),
+                 "control_bf16_steps": controls,
                  **_swa_bound(B, S, H, KV, hd, W, dtype)}
             timings[name] = t
             print(f"swa timing {name}: " + json.dumps(t))
@@ -2560,7 +2597,12 @@ LM_TRAIN = {
     "tinyllama-1.1b": ("tinyllama-1.1b", 4, 2048, 1, False),
     "olmo-1b": ("olmo-1b", 4, 2048, 1, False),
     "granite-34b-smoke": ("granite-34b", 4, 2048, 3, True),
+    "deepseek-moe-16b": ("deepseek-moe-16b", 4, 2048, 3, False),
 }
+# depth cuts of LM_TRAIN rows: deepseek-moe-16b at full width, 4 layers (1
+# dense, 3 MoE): 16.4 B bf16 parameters and their adamw moments do not fit
+# one 80 GB card
+LM_DEPTH = {"deepseek-moe-16b": 4}
 LM_LR = 3e-3                   # launch.train's default
 LM_PROFILED = ("qwen3-0.6b", "mamba2-130m")   # one warm step profiled
 # the archs run through launch.train.main itself (no --device: the card)
@@ -2568,7 +2610,7 @@ LM_MAIN = ("tinyllama-1.1b", "olmo-1b")
 # a smoke step, CPU vs card: sgd at lr 1, so that the update is the
 # gradient (adamw's first update is lr·g/(|g| + eps), a sign wherever
 # |g| >> eps, which two summation orders can flip near g = 0)
-LM_CROSS = ("qwen3-0.6b", "mamba2-130m")
+LM_CROSS = ("qwen3-0.6b", "mamba2-130m", "deepseek-moe-16b")
 LM_CROSS_SHAPE = (2, 128)
 LM_CROSS_TOL = 1e-4
 TWIN_SECURITY = ("none", "otp", "otp_gather", "secagg")
@@ -2590,6 +2632,26 @@ def _check_lm_launches(name, got: dict, want: dict):
     full.update(want)
     if got != full:
         raise PhaseError(f"{name}: launches {got}, expected {full}")
+
+
+def _moe_loss_terms(torch, cfg, params, batch) -> dict:
+    """The MoE training loss's terms on one batch, without autograd:
+    ``loss`` must be the chunked cross-entropy plus router_aux_weight
+    times the forward's aux (≤ 1e-6 rel), and the aux positive (the sum
+    of each MoE layer's router loss, which is k, the experts a token
+    takes, at a perfectly balanced routing)."""
+    from repro_torch.models import decoder
+    with torch.no_grad():
+        x, aux = decoder.forward_hidden(cfg, params, batch)
+        ce = decoder.chunked_ce(cfg, params, x, batch["labels"])
+        total = decoder.loss(cfg, params, batch)
+    out = {"loss": float(total), "ce": float(ce), "aux": float(aux),
+           "router_aux_weight": cfg.router_aux_weight}
+    want = out["ce"] + cfg.router_aux_weight * out["aux"]
+    if not (out["aux"] > 0 and abs(out["loss"] - want) <= 1e-6 * abs(want)):
+        raise PhaseError(f"{cfg.name}: the loss is not ce + "
+                         f"{cfg.router_aux_weight}·aux: {out}")
+    return out
 
 
 def phase_lm_train(torch, kops):
@@ -2619,6 +2681,8 @@ def phase_lm_train(torch, kops):
         cfg = get_config(arch)
         if smoke:
             cfg = smoke_variant(cfg).replace(dtype="bfloat16")
+        if name in LM_DEPTH:
+            cfg = cfg.replace(n_layers=LM_DEPTH[name])
         per_step = _lm_mixer_launches(cfg, 1)
         if arch in LM_MAIN:
             # the user's entry point, on the card by default
@@ -2649,6 +2713,8 @@ def phase_lm_train(torch, kops):
             corpus = synthetic_corpus(max(B * S * 50, 100_000),
                                       cfg.vocab_size, device="cuda")
             batches = list(lm_batches(corpus, B, S, steps))
+            if cfg.family == "moe":
+                first_terms = _moe_loss_terms(torch, cfg, params, batches[0])
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             _reset(kops)
@@ -2676,9 +2742,16 @@ def phase_lm_train(torch, kops):
                 r["profile"] = _device_profile(
                     torch, lambda: step(params, opt_state, batch, steps),
                     kernels=SERVE_KERNEL_NAMES)
+            if cfg.family == "moe":
+                # the terms before the first step and after the last
+                r["loss_terms"] = [first_terms, _moe_loss_terms(
+                    torch, cfg, params, batches[-1])]
             del params, opt_state, corpus, batches
         r.update(arch=arch, batch=B, seq=S, dtype=cfg.dtype,
                  smoke=smoke, n_layers=cfg.n_layers)
+        if name in LM_DEPTH:
+            r["reduced"] = {"n_layers": f"{get_config(arch).n_layers} -> "
+                                        f"{cfg.n_layers}"}
         if not losses or not all(math.isfinite(x) for x in losses):
             raise PhaseError(f"lm {name}: losses {losses}")
         launches[f"lm_{name}"] = got
@@ -2761,6 +2834,240 @@ def phase_lm_train(torch, kops):
     return launches, report
 
 
+# --------------------------------------------------------------------------
+# MoE serving (ROADMAP item 11b): deepseek-moe-16b and qwen3-moe-235b-a22b
+# through the serving entry points; kernel #6 in every attention layer
+# --------------------------------------------------------------------------
+
+# name -> (arch, depth cut or None); full width, bf16, random weights from
+# seed 0. qwen3-moe's 94 layers (235 B parameters) do not fit one card: 4
+# layers are 11.2 B
+MOE_SERVE = {"deepseek-moe-16b": ("deepseek-moe-16b", None),
+             "qwen3-moe-4l": ("qwen3-moe-235b-a22b", 4)}
+MOE_DECODE = ("deepseek-moe-16b",)          # the models that also decode
+MOE_CROSS_LAYERS = 4           # deepseek's f32 cross-check: 1 dense + 3 MoE
+MOE_CROSS_TOL = 1e-4
+# tests/test_decode_parity.py's MoE decode setting: no slot drops
+MOE_DECODE_CAPACITY = 16.0
+
+
+@contextlib.contextmanager
+def _routing_spy(blocks, seen: list):
+    """Records every MoE layer's routed experts (idx, on the host) while
+    it is on."""
+    route = blocks._moe_route
+
+    def spy(xt, router, cfg):
+        out = route(xt, router, cfg)
+        seen.append(out[1].cpu())
+        return out
+    blocks._moe_route = spy
+    try:
+        yield
+    finally:
+        blocks._moe_route = route
+
+
+def _flips(a: list, b: list) -> int:
+    """Routed (token, slot) entries that differ between two runs."""
+    if len(a) != len(b):
+        raise PhaseError(f"{len(a)} against {len(b)} routed MoE layers")
+    return sum(int((x != y).sum()) for x, y in zip(a, b))
+
+
+def phase_serve_moe(torch, kops):
+    """The MoE decoders at full width in bf16 through the serving entry
+    points (``MOE_SERVE``): init from seed 0 (timed), one
+    ``make_prefill_step`` over 4 x 2048 tokens (warm, then timed and
+    profiled), which must launch #6 once a layer at W=0 and no other
+    kernel; deepseek-moe-16b at full depth also ``generate``s 4 requests
+    of 16 prompt tokens and 32 new ones, launching no kernel. Each model
+    is freed before the next."""
+    from repro_torch import prng
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import get_config, get_model
+    from repro_torch.nn.pytree import tree_leaves
+    launches, report = {}, {}
+    for name, (arch, depth) in MOE_SERVE.items():
+        cfg = get_config(arch)
+        r = {"arch": arch, "n_layers": cfg.n_layers}
+        if depth:
+            r["reduced"] = {"n_layers": f"{cfg.n_layers} -> {depth}"}
+            cfg = cfg.replace(n_layers=depth)
+            r["n_layers"] = depth
+        api = get_model(cfg)
+        key = prng.PRNGKey(0, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = api.init(cfg, key)
+        torch.cuda.synchronize()
+        r.update(init_s=time.perf_counter() - t0,
+                 init_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 n_params=sum(x.numel() for x in tree_leaves(params)),
+                 param_gb=sum(x.numel() * x.element_size()
+                              for x in tree_leaves(params)) / 1e9)
+        B, S = SERVE_PREFILL
+        tokens = prng.randint(prng.fold_in(key, 1), (B, S), 0,
+                              cfg.vocab_size)
+        prefill = make_prefill_step(cfg, api)
+        L = cfg.n_layers
+        with torch.inference_mode():
+            prefill(params, {"tokens": tokens})      # warm (cuBLAS plans)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset(kops)
+            t0 = time.perf_counter()
+            logits = prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = _counts(kops)
+            by_window = dict(kops[2].LAUNCHES_BY_WINDOW)
+            launches[f"serve_moe_{name}_prefill"] = got
+            r.update(prefill_s=dt, prefill_tokens_per_s=B * S / dt,
+                     prefill_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                     capacity=max(int(cfg.capacity_factor * B * S
+                                      * cfg.n_experts_per_tok
+                                      / cfg.n_experts), 4))
+            if logits.shape != (B, cfg.padded_vocab) or not bool(
+                    torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+                raise PhaseError(f"{name} prefill logits "
+                                 f"{tuple(logits.shape)} not finite")
+            want = {k: 0 for k in got}
+            want["swa_attention"] = L
+            if got != want or by_window != {0: L}:
+                raise PhaseError(f"{name} prefill launches {got}, "
+                                 f"{by_window} by window, expected {want} "
+                                 f"at W=0")
+            r["prefill_profile"] = _device_profile(
+                torch, lambda: prefill(params, {"tokens": tokens}),
+                kernels=SERVE_KERNEL_NAMES)
+            if name in MOE_DECODE:
+                nb, npr, ngen = SERVE_GEN
+                prompts = prng.randint(prng.fold_in(key, 2), (nb, npr), 0,
+                                       cfg.vocab_size)
+                generate(cfg, api, params, prompts, 2, cache_len=npr + 2)
+                torch.cuda.synchronize()
+                _reset(kops)
+                t0 = time.perf_counter()
+                toks = generate(cfg, api, params, prompts, ngen,
+                                cache_len=npr + ngen)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                got = _counts(kops)
+                launches[f"serve_moe_{name}_decode"] = got
+                r.update(generate_s=dt, decode_steps=npr + ngen,
+                         decode_step_ms=dt / (npr + ngen) * 1e3,
+                         decode_tokens_per_s=nb * (npr + ngen) / dt,
+                         new_tokens_per_s=nb * ngen / dt,
+                         sample_tokens=toks[0, npr:npr + 8].tolist())
+                if any(got.values()):
+                    raise PhaseError(f"{name} decode launched a kernel: "
+                                     f"{got}")
+                if toks.shape != (nb, npr + ngen) or not bool(
+                        ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+                    raise PhaseError(f"{name}: generated tokens out of "
+                                     f"range")
+                # one decode step under the profiler: the host's share
+                cache = api.init_cache(cfg, nb, npr + ngen, device="cuda")
+                step = {"token": prompts[:, 0], "pos": torch.zeros(
+                    (nb,), dtype=torch.int32, device="cuda")}
+                api.decode_step(cfg, params, cache, step)
+                r["decode_step_profile"] = _device_profile(
+                    torch, lambda: api.decode_step(cfg, params, cache, step))
+                del cache
+        report[name] = r
+        print(f"serve moe {name}: " + json.dumps(r))
+        del params, logits
+        torch.cuda.empty_cache()
+    print(f"serve moe launches: {json.dumps(launches)}")
+    return launches, report
+
+
+def phase_serve_moe_cross(torch, blocks, swa_ops):
+    """Cross-checks of deepseek-moe-16b in float32 at full width, cut to
+    ``MOE_CROSS_LAYERS`` layers, TF32 off: the prefill's next-token logits
+    of 2 x 2048 tokens with #6 against its plain version (rel <= 1e-4);
+    forward vs decode-stepped logits over 64 tokens at capacity 16 (rel <
+    2e-3, tests/test_decode_parity.py's contract); a 2-layer (1 dense, 1
+    MoE) prefill of 2 x 256 tokens on the CPU (plain) against the card
+    (#6) (rel <= 1e-4). Each pair's routed experts are compared layer by
+    layer and the entries that differ counted (a near tie can flip one)."""
+    from repro_torch import prng
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import get_config, get_model
+    from repro_torch.nn.pytree import tree_map
+    cfg = get_config("deepseek-moe-16b").replace(
+        dtype="float32", n_layers=MOE_CROSS_LAYERS)
+    api = get_model(cfg)
+    v = cfg.vocab_size
+    out = {"n_layers": MOE_CROSS_LAYERS}
+    with torch.inference_mode():
+        key = prng.PRNGKey(1, device="cuda")
+        params = api.init(cfg, key)
+        B, S = 2, 2048
+        tokens = prng.randint(prng.fold_in(key, 2), (B, S), 0, v)
+        prefill = make_prefill_step(cfg, api)
+        seen_k, seen_p = [], []
+        with _routing_spy(blocks, seen_k):
+            got = prefill(params, {"tokens": tokens})
+        with _plain_mixers(blocks, swa_ops), _routing_spy(blocks, seen_p):
+            want = prefill(params, {"tokens": tokens})
+        out["prefill_kernel_vs_plain_rel"] = _rel(got[:, :v], want[:, :v])
+        out["prefill_kernel_vs_plain_flips"] = _flips(seen_k, seen_p)
+        del got, want
+
+        cfg16 = cfg.replace(capacity_factor=MOE_DECODE_CAPACITY)
+        B, S = 2, 64
+        tokens = prng.randint(prng.fold_in(key, 1), (B, S), 0, v)
+        full, aux = api.forward(cfg16, params, {"tokens": tokens})
+        cache = api.init_cache(cfg16, B, S, device="cuda")
+        steps = []
+        for t in range(S):
+            lg, cache = api.decode_step(cfg16, params, cache, {
+                "token": tokens[:, t],
+                "pos": torch.full((B,), t, dtype=torch.int32,
+                                  device="cuda")})
+            steps.append(lg)
+        out["forward_vs_decode_rel"] = _rel(torch.stack(steps, 1)[..., :v],
+                                            full[..., :v])
+        out["forward_aux"] = float(aux)
+        del params, full, cache, steps
+        torch.cuda.empty_cache()
+
+        cfg2 = cfg.replace(n_layers=2)
+        # drawn on the card and copied: the threefry draws of 1.1 B
+        # parameters would take minutes on the host's cores
+        p_cpu = tree_map(lambda a: a.cpu(),
+                         api.init(cfg2, prng.PRNGKey(2, device="cuda")))
+        tokens = prng.randint(prng.PRNGKey(3, device="cpu"), (2, 256), 0, v)
+        seen_c, seen_g = [], []
+        t0 = time.perf_counter()
+        with _routing_spy(blocks, seen_c):
+            want = make_prefill_step(cfg2, api)(p_cpu, {"tokens": tokens})
+        out["two_layer_cpu_s"] = time.perf_counter() - t0
+        with _routing_spy(blocks, seen_g):
+            got = make_prefill_step(cfg2, api)(
+                tree_map(lambda a: a.cuda(), p_cpu),
+                {"tokens": tokens.cuda()})
+        out["two_layer_cpu_vs_cuda_rel"] = _rel(got[:, :v].cpu(),
+                                                want[:, :v])
+        out["two_layer_cpu_vs_cuda_flips"] = _flips(seen_c, seen_g)
+        out["two_layer_routed_entries"] = sum(x.numel() for x in seen_c)
+        del p_cpu, got, want
+        torch.cuda.empty_cache()
+    print("serve moe cross-checks: " + json.dumps(out))
+    if not out["forward_vs_decode_rel"] < 2e-3:
+        raise PhaseError(f"moe forward vs decode: rel "
+                         f"{out['forward_vs_decode_rel']}")
+    for k in ("prefill_kernel_vs_plain_rel", "two_layer_cpu_vs_cuda_rel"):
+        if not out[k] <= MOE_CROSS_TOL:
+            raise PhaseError(f"moe {k} = {out[k]} exceeds {MOE_CROSS_TOL} "
+                             f"(routing flips: {out})")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2830,6 +3137,11 @@ def main() -> int:
     lm_launches, lm_report = phase_lm_train(torch, kops)
     launches.update(lm_launches)
     lm_profile = lm_report["qwen3-0.6b"]["profile"] or {}
+    t0 = time.perf_counter()
+    moe_launches, moe_report = phase_serve_moe(torch, kops)
+    launches.update(moe_launches)
+    moe_cross = phase_serve_moe_cross(torch, blocks, swa_ops)
+    print(f"phase 15 (MoE serving): {time.perf_counter() - t0:.1f} s")
 
     t = timings["ansatz"]
     entries = [{
@@ -2941,6 +3253,15 @@ def main() -> int:
                 n: r["launches_per_step"][name]
                 for n, r in lm_report.items() if "launches_per_step" in r},
             "shapes": timed})
+    # #6 in the MoE prefills of phase 15: its device time per launch there,
+    # from each prefill's profile (the launches are launches_by_path's
+    # serve_moe_* counts, the shapes' timings phase 10's), and the f32
+    # cross-checks
+    swa_entry = next(e for e in entries if e["name"] == "swa_attention")
+    swa_entry["moe_prefill_device_ms_per_launch"] = {
+        name: (r["prefill_profile"] or {}).get("ms_per_launch", {}).get(
+            SERVE_KERNEL_NAMES[0]) for name, r in moe_report.items()}
+    swa_entry["moe_f32_cross_checks"] = moe_cross
     for entry in entries:
         # launches as read on every path: the trainer paths, the prefill
         # and decode, each counted from 0 (a kernel's own paths are its

@@ -7,7 +7,8 @@ runs end to end on the CPU:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --smoke --requests 4 --prompt-len 16 --gen 24 --device cpu
 
-and, without ``--device``, on the GPU.
+and, without ``--device``, on the GPU. Any decoder arch of the registry
+serves the same way (``--arch deepseek-moe-16b``, ``qwen3-0.6b``, ...).
 """
 from __future__ import annotations
 

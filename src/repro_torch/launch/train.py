@@ -2,14 +2,15 @@
 
 Two entry modes, both on the GPU unless ``--device cpu`` is given:
 
-  * LM pretraining on the synthetic corpus, for the dense and ssm archs
-    (and the hybrid hymba-1.5b); ``--smoke`` takes the reduced config:
+  * LM pretraining on the synthetic corpus, for the dense, moe and ssm
+    archs (and the hybrid hymba-1.5b); ``--smoke`` takes the reduced
+    config:
 
       PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
           --smoke --steps 50 --batch 8 --seq 128
 
-    The MoE archs wait for ROADMAP queue 1, item 11b, and the encdec and
-    vlm archs for item 11c: they raise, naming their item.
+    The encdec and vlm archs wait for ROADMAP queue 1, item 11c: they
+    raise, naming it.
 
   * sat-QFL federated training (``--fl``): the in-graph stacked-satellite
     round (``repro_torch.core.dist``), every satellite a row of one stacked

@@ -18,8 +18,11 @@ hand-written kernels: ``attn_apply`` through ``kernels.swa_attention`` and
 ``ssm_apply`` through ``kernels.ssd_scan`` (each takes its plain version
 on CPU tensors; each backward replays the plain version). Single-token
 decode is plain torch, as in the JAX package. Ported here: the parts the
-dense, ssm and hybrid decoders need (attention with GQA, MQA and qk-norm,
-SwiGLU FFN, Mamba-2). Not yet: MoE (ROADMAP queue 1, item 11b),
+dense, moe, ssm and hybrid decoders need (attention with GQA, MQA and
+qk-norm, SwiGLU FFN, the capacity-dispatched MoE FFN, Mamba-2). The MoE
+layer has no kernel in the JAX package either: routing, dispatch and
+combine are plain torch, the experts three batched matmuls. Not yet:
+expert parallelism over a device mesh (ROADMAP queue 1, item 12b),
 cross-attention (11c), the query-chunked attention and the int8 KV cache
 (11d).
 """
@@ -208,6 +211,131 @@ def ffn_init(key, cfg: ArchConfig, L: int | None, dtype, d_ff: int = 0):
 
 def ffn_apply(p, x):
     return swiglu(x, p["wg"], p["wu"], p["wd"])
+
+
+# =========================================================================
+# Mixture of Experts
+# =========================================================================
+
+def moe_init(key, cfg: ArchConfig, L: int | None, dtype):
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    pre = _pre(L)
+    ks = prng.split(key, 5)
+    p = {
+        "router": scaled_init(ks[0], pre + (d, E), _F32),
+        "we_g": scaled_init(ks[1], pre + (E, d, f), dtype),
+        "we_u": scaled_init(ks[2], pre + (E, d, f), dtype),
+        "we_d": scaled_init(ks[3], pre + (E, f, d), dtype),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = ffn_init(ks[4], cfg, L, dtype,
+                               d_ff=cfg.n_shared_experts * f)
+    return p
+
+
+def _one_hot(i, n: int):
+    """Boolean one-hot of i over n classes (``F.one_hot`` checks its
+    range on the host, a device synchronisation a call on the card)."""
+    return i[..., None] == torch.arange(n, device=i.device)
+
+
+def _moe_route(xt, router, cfg: ArchConfig):
+    """Token-choice routing of xt (T, d) over all experts: the float32
+    softmax of the router logits, its top k (largest first and, among
+    equal probabilities, the lower expert first, as ``lax.top_k``: a
+    stable descending sort), the top k renormalised, and the Switch
+    load-balance aux E·Σ mean(probs)·mean(Σ_k one_hot(idx)).
+    Returns (gate (T, k), idx (T, k), aux)."""
+    E, k = cfg.n_experts, cfg.n_experts_per_tok
+    probs = torch.softmax(xt.to(_F32) @ router, dim=-1)
+    top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = top[:, :k], order[:, :k]
+    gate = gate / torch.sum(gate, dim=-1, keepdim=True)
+    me = torch.mean(probs, dim=0)
+    ce = torch.mean(torch.sum(_one_hot(idx, E).to(_F32), dim=1), dim=0)
+    return gate, idx, E * torch.sum(me * ce)
+
+
+def _moe_slots(idx, cfg: ArchConfig, e_off, e_num: int):
+    """Capacity dispatch of the token-major (T·k) slots onto the local
+    experts [e_off, e_off + e_num): cap = max(int(capacity_factor·T·k/E),
+    4); a slot's position in its expert is the count of the earlier slots
+    routed there (the reference's running count over a one-hot; here a
+    stable sort by expert keeps each expert's slots in order, so a slot's
+    position is its place in the sorted order less its expert's first).
+    Returns (cap, keep, target): ``keep`` marks the local slots within
+    capacity, ``target`` their row of the (e_num·cap) expert buffer and
+    every other slot's the overflow row e_num·cap."""
+    T, k = idx.shape
+    cap = max(int(cfg.capacity_factor * T * k / cfg.n_experts), 4)
+    a = idx.reshape(T * k)
+    local = (a >= e_off) & (a < e_off + e_num)
+    e_loc = torch.where(local, a - e_off, e_num)
+    order = torch.argsort(e_loc, stable=True)
+    by_e = e_loc[order]
+    first = torch.searchsorted(by_e, by_e)
+    place = torch.arange(T * k, device=a.device) - first
+    slot = torch.empty_like(place).scatter_(0, order, place)
+    keep = local & (slot < cap)
+    return cap, keep, torch.where(keep, e_loc * cap + slot, e_num * cap)
+
+
+def _moe_local(xt, p, cfg: ArchConfig, e_off, e_num: int, t_scale: int):
+    """Token-choice top-k MoE of xt (T, d) over the local expert slice
+    [e_off, e_off + e_num), whose stacked weights ``p`` holds; the routing
+    is over all experts. Returns (out (T, d), aux). ``t_scale`` (the
+    token replication of expert parallelism) is unused, as in the JAX
+    package.
+
+    Dispatch: each kept slot owns one row of the expert buffer and writes
+    its token there; the dropped slots write theirs to the overflow row,
+    which is cut off, and read back the zero row appended to the experts'
+    output, so they add nothing and take no gradient. The experts are three batched matmuls over (e_num,
+    cap, d), ``silu(h_g) · h_u`` in the native dtype. Combine: each
+    token's k gated contributions added in slot order in the native
+    dtype, as the reference's scatter-add adds them (an atomic
+    ``index_add_`` would add them in arrival order on the card, so a
+    checkpointed layer's recompute would not be its forward)."""
+    T, d = xt.shape
+    gate, idx, aux = _moe_route(xt, p["router"], cfg)
+    cap, _, target = _moe_slots(idx, cfg, e_off, e_num)
+    k = idx.shape[1]
+    rows = xt[:, None, :].expand(T, k, d).reshape(T * k, d)
+    xin = xt.new_zeros((e_num * cap + 1, d)).index_put((target,), rows)
+    xin = xin[:-1].reshape(e_num, cap, d)
+    h = F.silu(torch.bmm(xin, p["we_g"])) * torch.bmm(xin, p["we_u"])
+    y_e = torch.bmm(h, p["we_d"])
+    y_flat = torch.cat([y_e.reshape(e_num * cap, d), xt.new_zeros((1, d))])
+    g = gate.to(xt.dtype).reshape(T, k, 1)
+    y = y_flat[target].reshape(T, k, d) * g
+    out = y[:, 0]
+    for j in range(1, k):
+        out = out + y[:, j]
+    return out, aux
+
+
+def _moe_local_dynamic(xt, p, cfg: ArchConfig, e_off, e_num: int):
+    """``_moe_local`` with a tensor (rank-dependent) expert offset."""
+    return _moe_local(xt, p, cfg, e_off, e_num, 1)
+
+
+def moe_apply(p, cfg: ArchConfig, x, ctx=None):
+    """MoE FFN of x (B, S, d): (y, aux), the routed experts plus the shared
+    ones. The JAX package's single-device branch (``ctx`` None, or no
+    multi-device mesh); its expert parallelism over a mesh
+    (``_moe_a2a``, ``_moe_replicated_ep``) waits for ROADMAP queue 1, item
+    12b, and a mesh ctx with model_size > 1 raises."""
+    if (ctx is not None and getattr(ctx, "mesh", None) is not None
+            and getattr(ctx, "model_size", 1) > 1):
+        raise NotImplementedError(
+            "MoE expert parallelism over a device mesh is not ported yet "
+            "(ROADMAP queue 1, item 12b)")
+    B, S, d = x.shape
+    out, aux = _moe_local(x.reshape(B * S, d), p, cfg, 0, cfg.n_experts, 1)
+    y = out.reshape(B, S, d)
+    if "shared" in p:
+        y = y + ffn_apply(p["shared"], x)
+    return y, aux
 
 
 # =========================================================================

@@ -3,17 +3,21 @@
 Layers are grouped into *segments*, contiguous runs of identical layers
 whose parameters are stacked along a leading layer axis; the forward and
 the decode step loop over each segment's layers in Python (the JAX
-package scans them). The port trains and serves the dense (attention +
-SwiGLU: tinyllama, olmo, qwen3, granite), ssm (Mamba-2: mamba2-130m) and
-hybrid (parallel attention ∥ Mamba-2 heads, then a SwiGLU FFN: hymba)
-kinds; MoE layers raise (ROADMAP queue 1, item 11b).
+package scans them). The port trains and serves all four kinds: dense
+(attention + SwiGLU: tinyllama, olmo, qwen3, granite), moe (attention +
+the capacity-dispatched MoE FFN: deepseek-moe, qwen3-moe; deepseek's
+first layer is dense), ssm (Mamba-2: mamba2-130m) and hybrid (parallel
+attention ∥ Mamba-2 heads, then a SwiGLU FFN: hymba).
 
 Training: ``loss`` is the forward with one ``torch.utils.checkpoint`` per
 layer under ``remat`` (the JAX package's ``jax.checkpoint`` of the scan
 body), so a backward recomputes each layer's forward, and ``chunked_ce``,
 whose chunks recompute their logits in the backward. So a training step
 launches the attention or SSD kernel twice per layer, and the (B, S, V)
-float32 logits never exist whole. ``ctx`` is accepted and ignored.
+float32 logits never exist whole. A layer returns its MoE router aux
+(zero for the other kinds) beside its output, and ``loss`` adds
+``router_aux_weight`` times their sum. ``ctx`` goes to ``moe_apply``,
+which raises on a multi-device mesh; the other blocks ignore it.
 """
 from __future__ import annotations
 
@@ -74,21 +78,14 @@ def segment_plan(cfg: ArchConfig) -> list[SegmentSpec]:
     return plan
 
 
-def _no_moe(seg: SegmentSpec):
-    if seg.kind == "moe":
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP "
-                                  "queue 1, item 11b)")
-
-
 def _layer_init(key, cfg: ArchConfig, seg: SegmentSpec, dtype):
-    _no_moe(seg)
     L = seg.n_layers
     ks = prng.split(key, 6)
     dev = key.device
     parametric = cfg.norm_type != "nonparam_ln"
     ones = lambda: torch.ones((L, cfg.d_model), dtype=dtype, device=dev)
     p = {}
-    if seg.kind in ("dense", "hybrid"):
+    if seg.kind in ("dense", "moe", "hybrid"):
         p["attn"] = B.attn_init(ks[0], cfg, L, dtype)
     if seg.kind in ("ssm", "hybrid"):
         p["ssm"] = B.ssm_init(ks[1], cfg, L, dtype)
@@ -100,6 +97,10 @@ def _layer_init(key, cfg: ArchConfig, seg: SegmentSpec, dtype):
         p["bn_ssm"] = ones()
     if seg.kind in ("dense", "hybrid"):
         p["ffn"] = B.ffn_init(ks[2], cfg, L, dtype, d_ff=seg.d_ff)
+        if parametric:
+            p["ln2"] = ones()
+    elif seg.kind == "moe":
+        p["moe"] = B.moe_init(ks[3], cfg, L, dtype)
         if parametric:
             p["ln2"] = ones()
     return p
@@ -134,7 +135,9 @@ def _layer(sp, i: int):
 
 
 def _layer_apply(cfg: ArchConfig, seg: SegmentSpec, lp, x, positions, ctx):
-    _no_moe(seg)
+    """One layer's forward: (x, aux), aux the MoE router loss (zero for
+    the other kinds)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = B._norm(cfg, x, lp.get("ln1"))
     if seg.kind == "ssm":
         x = x + B.ssm_apply(lp["ssm"], cfg, h)
@@ -149,24 +152,31 @@ def _layer_apply(cfg: ArchConfig, seg: SegmentSpec, lp, x, positions, ctx):
                              window=seg.window, ctx=ctx)
     if seg.kind in ("dense", "hybrid"):
         x = x + B.ffn_apply(lp["ffn"], B._norm(cfg, x, lp.get("ln2")))
-    return x
+    elif seg.kind == "moe":
+        y, a = B.moe_apply(lp["moe"], cfg, B._norm(cfg, x, lp.get("ln2")),
+                           ctx)
+        x = x + y
+        aux = aux + a
+    return x, aux
 
 
 def _run_segment(cfg, seg, sp, x, positions, ctx, remat: bool):
-    """The segment's layers in order; under ``remat`` (with autograd on)
-    each layer is one non-reentrant checkpoint: its activations are
-    recomputed in the backward, as the JAX package's ``jax.checkpoint``
-    of the scan body does."""
+    """The segment's layers in order: (x, the sum of their aux). Under
+    ``remat`` (with autograd on) each layer is one non-reentrant
+    checkpoint: its activations are recomputed in the backward, as the
+    JAX package's ``jax.checkpoint`` of the scan body does."""
     remat = remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(seg.n_layers):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
+            x, a = torch.utils.checkpoint.checkpoint(
                 lambda x, i=i: _layer_apply(cfg, seg, _layer(sp, i), x,
                                             positions, ctx),
                 x, use_reentrant=False)
         else:
-            x = _layer_apply(cfg, seg, _layer(sp, i), x, positions, ctx)
-    return x
+            x, a = _layer_apply(cfg, seg, _layer(sp, i), x, positions, ctx)
+        aux = aux + a
+    return x, aux
 
 
 def _logits(cfg: ArchConfig, params, x):
@@ -180,16 +190,17 @@ def _logits(cfg: ArchConfig, params, x):
 
 def forward_hidden(cfg: ArchConfig, params, batch, ctx=None,
                    remat: bool = True):
-    """Final-normed hidden states (B,S,d) + aux losses (zero: the router
-    loss of MoE layers is the only aux term, and MoE is not ported)."""
+    """Final-normed hidden states (B,S,d) + aux losses (the MoE layers'
+    router loss, summed; zero without MoE layers)."""
     tokens = batch["tokens"]
     Bb, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(Bb, S)
     x = params["embed"][tokens]
-    for seg, sp in zip(segment_plan(cfg), params["segments"]):
-        x = _run_segment(cfg, seg, sp, x, positions, ctx, remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for seg, sp in zip(segment_plan(cfg), params["segments"]):
+        x, a = _run_segment(cfg, seg, sp, x, positions, ctx, remat)
+        aux = aux + a
     return B._norm(cfg, x, params.get("final_norm")), aux
 
 
@@ -266,7 +277,7 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
     caches = []
     for seg in segment_plan(cfg):
         c = {}
-        if seg.kind in ("dense", "hybrid"):
+        if seg.kind in ("dense", "moe", "hybrid"):
             clen = min(seg.window, cache_len) if seg.window > 0 else cache_len
             c["attn"] = B.attn_cache_init(cfg, seg.n_layers, batch, clen,
                                           dtype, dev)
@@ -277,7 +288,6 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
 
 
 def _layer_decode(cfg: ArchConfig, seg: SegmentSpec, lp, lc, x, pos, ctx):
-    _no_moe(seg)
     new_c = {}
     h = B._norm(cfg, x, lp.get("ln1"))
     if seg.kind == "ssm":
@@ -294,6 +304,10 @@ def _layer_decode(cfg: ArchConfig, seg: SegmentSpec, lp, lc, x, pos, ctx):
     x = x + y
     if seg.kind in ("dense", "hybrid"):
         x = x + B.ffn_apply(lp["ffn"], B._norm(cfg, x, lp.get("ln2")))
+    elif seg.kind == "moe":
+        y2, _ = B.moe_apply(lp["moe"], cfg, B._norm(cfg, x, lp.get("ln2")),
+                            ctx)
+        x = x + y2
     return x, new_c
 
 

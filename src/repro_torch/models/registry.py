@@ -1,10 +1,10 @@
 """Model registry: arch id -> (config, ModelApi) (port of ``repro.models.registry``).
 
 The port runs the paper's VQC and, through the decoder, the dense
-(tinyllama-1.1b, olmo-1b, qwen3-0.6b, granite-34b), ssm (mamba2-130m) and
-hybrid (hymba-1.5b) families, for training and serving. The MoE archs
-(ROADMAP queue 1, item 11b) and the encdec and vlm archs (item 11c) raise
-``NotImplementedError`` until they are ported.
+(tinyllama-1.1b, olmo-1b, qwen3-0.6b, granite-34b), moe (deepseek-moe-16b,
+qwen3-moe-235b-a22b), ssm (mamba2-130m) and hybrid (hymba-1.5b)
+families, for training and serving. The encdec and vlm archs (ROADMAP
+queue 1, item 11c) raise ``NotImplementedError`` until they are ported.
 """
 from __future__ import annotations
 
@@ -29,12 +29,12 @@ class ModelApi(NamedTuple):
 
 
 ARCH_IDS = ["vqc-satqfl", "hymba-1.5b", "tinyllama-1.1b", "olmo-1b",
-            "qwen3-0.6b", "granite-34b", "mamba2-130m"]
+            "qwen3-0.6b", "granite-34b", "mamba2-130m", "deepseek-moe-16b",
+            "qwen3-moe-235b-a22b"]
 
 #: the JAX package's arch ids the port has not ported yet, by ROADMAP item
-_NOT_PORTED = {"qwen3-moe-235b-a22b": "11b", "deepseek-moe-16b": "11b",
-               "whisper-tiny": "11c", "llama-3.2-vision-90b": "11c"}
-_FAMILY_ITEM = {"moe": "11b", "encdec": "11c", "vlm": "11c"}
+_NOT_PORTED = {"whisper-tiny": "11c", "llama-3.2-vision-90b": "11c"}
+_FAMILY_ITEM = {"encdec": "11c", "vlm": "11c"}
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -66,7 +66,7 @@ def get_model(cfg_or_id) -> ModelApi:
     if family == "vqc":
         from repro_torch.quantum.vqc import vqc_api
         return vqc_api()
-    if family in ("dense", "ssm", "hybrid"):
+    if family in ("dense", "moe", "ssm", "hybrid"):
         return _decoder_api()
     if family in _FAMILY_ITEM:
         raise _not_ported(f"family {family!r}", _FAMILY_ITEM[family])

@@ -10,6 +10,11 @@ bits; sums and products are reduced mod 2^32 after each operation.
 A key is an int64 tensor of shape (..., 2). Every function here accepts
 leading key-batch dims, which is how the trainer derives one key per
 client (``fold_in`` of a key by a vector of satellite ids) without a loop.
+
+Element i of a draw is a function of the key and its counter i alone, so
+the draws take a flat counter offset ``start``: ``bits(key, (n,),
+start=z)`` is elements [z, z + n) of the draw over any shape of more
+elements, which is how ``nn.init`` fills a large leaf slab by slab.
 """
 from __future__ import annotations
 
@@ -57,23 +62,23 @@ def key_u32(seed_u32) -> torch.Tensor:
     return torch.stack([torch.zeros_like(s), s], dim=-1)
 
 
-def _iota(key: torch.Tensor, shape: tuple) -> tuple:
-    """(hi, lo) words of the row-major 64-bit iota over ``shape``, shaped
-    to broadcast after the key's batch dims."""
+def _iota(key: torch.Tensor, shape: tuple, start: int = 0) -> tuple:
+    """(hi, lo) words of the row-major 64-bit iota over ``shape`` from the
+    counter ``start``, shaped to broadcast after the key's batch dims."""
     n = 1
     for s in shape:
         n *= s
-    lo = torch.arange(n, dtype=torch.int64, device=key.device)
+    lo = torch.arange(start, start + n, dtype=torch.int64, device=key.device)
     hi = lo >> 32
     return hi.reshape(shape), (lo & _M32).reshape(shape)
 
 
-def _hash_shape(key: torch.Tensor, shape: tuple):
+def _hash_shape(key: torch.Tensor, shape: tuple, start: int = 0):
     lead = key.shape[:-1]
     pad = (1,) * len(shape)
     k1 = key[..., 0].reshape(lead + pad)
     k2 = key[..., 1].reshape(lead + pad)
-    hi, lo = _iota(key, shape)
+    hi, lo = _iota(key, shape, start)
     return threefry2x32(k1, k2, hi, lo)
 
 
@@ -93,17 +98,18 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(y1, y2), dim=-1)
 
 
-def bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
-    """``jax.random.bits`` (uint32 words): key (..., 2) -> (..., *shape)."""
-    b1, b2 = _hash_shape(key, tuple(shape))
+def bits(key: torch.Tensor, shape: tuple, *, start: int = 0) -> torch.Tensor:
+    """``jax.random.bits`` (uint32 words): key (..., 2) -> (..., *shape),
+    the words at counters ``start`` on."""
+    b1, b2 = _hash_shape(key, tuple(shape), start)
     return b1 ^ b2
 
 
 def uniform(key: torch.Tensor, shape: tuple, minval=0.0,
-            maxval=1.0) -> torch.Tensor:
+            maxval=1.0, *, start: int = 0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: 23 random mantissa bits under
     the exponent of 1.0, minus 1, scaled into [minval, maxval)."""
-    b = bits(key, shape)
+    b = bits(key, shape, start=start)
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
@@ -217,11 +223,13 @@ _NEXT_ABOVE_M1 = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2_F32 = float(np.float32(math.sqrt(2)))
 
 
-def normal(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+def normal(key: torch.Tensor, shape: tuple, *,
+           start: int = 0) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``uniform`` on [nextafter(−1, 0),
     1) through ``sqrt(2) · erfinv``. The uniform bits are JAX's, and the
     values JAX's CPU values (see ``erfinv``)."""
-    return erfinv(uniform(key, shape, _NEXT_ABOVE_M1, 1.0)) * _SQRT2_F32
+    return erfinv(uniform(key, shape, _NEXT_ABOVE_M1, 1.0,
+                          start=start)) * _SQRT2_F32
 
 
 #: erf(±2/√2) in float32, the bounds of ``truncated_normal``'s uniform at
@@ -230,7 +238,7 @@ _ERF_2_OVER_SQRT2 = float(np.float32(0.9544997215270996))
 
 
 def truncated_normal(key: torch.Tensor, lower: float, upper: float,
-                     shape: tuple) -> torch.Tensor:
+                     shape: tuple, *, start: int = 0) -> torch.Tensor:
     """``jax.random.truncated_normal`` in float32 at the ±2σ bounds the
     models use, as ``jax._src.random._truncated_normal`` computes it:
     ``uniform`` on [erf(lower/√2), erf(upper/√2)), then ``√2 · erfinv``,
@@ -239,7 +247,8 @@ def truncated_normal(key: torch.Tensor, lower: float, upper: float,
     if (float(lower), float(upper)) != (-2.0, 2.0):
         raise ValueError(f"truncated_normal takes the ±2 bounds of the "
                          f"models' initializers, got ({lower}, {upper})")
-    u = uniform(key, shape, -_ERF_2_OVER_SQRT2, _ERF_2_OVER_SQRT2)
+    u = uniform(key, shape, -_ERF_2_OVER_SQRT2, _ERF_2_OVER_SQRT2,
+                start=start)
     out = erfinv(u) * _SQRT2_F32
     lo = float(np.nextafter(np.float32(lower), np.float32(np.inf)))
     hi = float(np.nextafter(np.float32(upper), np.float32(-np.inf)))

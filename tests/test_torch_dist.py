@@ -516,9 +516,9 @@ def test_launcher_runs_on_the_card_by_default():
 
 
 def test_launcher_lm_path_not_ported():
-    """The LM path runs the dense, ssm and hybrid archs; the MoE, encdec
+    """The LM path runs the dense, moe, ssm and hybrid archs; the encdec
     and vlm archs raise, naming their ROADMAP item."""
-    for arch, item in (("deepseek-moe-16b", "item 11b"),
+    for arch, item in (("llama-3.2-vision-90b", "item 11c"),
                        ("whisper-tiny", "item 11c")):
         with pytest.raises(NotImplementedError, match=item):
             port_train.main(["--device", "cpu", "--arch", arch, "--smoke"])

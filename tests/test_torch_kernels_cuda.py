@@ -1230,7 +1230,8 @@ def test_swa_kernel_matches_plain_at_training_shapes(B, S, H, KV, hd, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "olmo-1b", "qwen3-0.6b",
-                                  "granite-34b", "mamba2-130m"])
+                                  "granite-34b", "mamba2-130m",
+                                  "deepseek-moe-16b", "qwen3-moe-235b-a22b"])
 def test_lm_train_step_card_matches_cpu(arch):
     """One train step of the smoke variant in float32 under sgd at lr 1
     (the update is the gradient; adamw's first update is a sign), on the
@@ -1266,3 +1267,55 @@ def test_lm_train_step_card_matches_cpu(arch):
     assert abs(float(l_g) - float(l_c)) <= 1e-4 * abs(float(l_c))
     for a, b in zip(tree_leaves(p_g), tree_leaves(p_c)):
         assert (a.cpu() - b).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-235b-a22b"])
+def test_moe_prefill_card_matches_cpu(arch, monkeypatch):
+    """The smoke MoE model's prefill of 2 x 256 tokens in float32 (TF32
+    off) on the card (#6) and on the CPU (its plain version) from the same
+    key: every MoE layer routes every token to the same experts, and the
+    next-token logits agree within 1e-4 rel. On the card the prefill
+    launches #6 once a layer and #7 never; decode launches neither."""
+    _need_cuda()
+    from repro_torch import prng
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import blocks, get_config, get_model
+    from repro_torch.models import smoke_variant
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_variant(get_config(arch))
+    api = get_model(cfg)
+    routed = {"cpu": [], "cuda": []}
+    route = blocks._moe_route
+
+    def spy(xt, router, cfg_):
+        out = route(xt, router, cfg_)
+        routed[xt.device.type].append(out[1].cpu())
+        return out
+    monkeypatch.setattr(blocks, "_moe_route", spy)
+    tokens = prng.randint(prng.PRNGKey(3, "cpu"), (2, 256), 0,
+                          cfg.vocab_size)
+    logits = {}
+    with torch.inference_mode():
+        for dev in ("cpu", "cuda"):
+            params = api.init(cfg, prng.PRNGKey(0, dev))
+            swa_ops.LAUNCHES = ssd_ops.LAUNCHES = 0
+            logits[dev] = make_prefill_step(cfg, api)(
+                params, {"tokens": tokens.to(dev)})[:, :cfg.vocab_size]
+            launches = (swa_ops.LAUNCHES, ssd_ops.LAUNCHES)
+        assert launches == (cfg.n_layers, 0)
+        n_moe = cfg.n_layers - cfg.first_dense_layers
+        assert len(routed["cpu"]) == len(routed["cuda"]) == n_moe
+        for a, b in zip(routed["cpu"], routed["cuda"]):
+            assert torch.equal(a, b)
+        want = logits["cpu"]
+        rel = ((logits["cuda"].cpu() - want).abs().max()
+               / want.abs().max()).item()
+        assert rel <= 1e-4
+        swa_ops.LAUNCHES = ssd_ops.LAUNCHES = 0
+        toks = generate(cfg, api, params, tokens[:, :8].cuda(), 4,
+                        cache_len=12)
+        assert (swa_ops.LAUNCHES, ssd_ops.LAUNCHES) == (0, 0)
+        assert toks.shape == (2, 12)

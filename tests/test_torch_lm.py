@@ -1,10 +1,12 @@
 """The LM training path of the port against ``repro``, arch by arch.
 
-For each of the dense and ssm archs (tinyllama-1.1b, olmo-1b, qwen3-0.6b,
-granite-34b, mamba2-130m) at its smoke variant, and qwen3's at its own
+For each of the dense, ssm and moe archs (tinyllama-1.1b, olmo-1b,
+qwen3-0.6b, granite-34b, mamba2-130m, deepseek-moe-16b,
+qwen3-moe-235b-a22b) at its smoke variant, and qwen3's at its own
 head_dim of 128 (qk_norm over 128 lanes), in float32 on the CPU,
 the port's kernels taking their plain versions: the same init from a key
-(no weights carried across), forward logits and ``loss`` rel ≤ 1e-5,
+(no weights carried across), forward logits and ``loss`` rel ≤ 1e-5, the
+forward's aux (the MoE router loss; 0 for the others) within 1e-6,
 every gradient leaf within 1e-4 of the leaf's largest |g|, ``chunked_ce``
 with a mask and a chunk shorter than S (value and the gradient of x),
 and one ``sgd`` train step that moves the parameters as JAX's does. Then,
@@ -41,11 +43,12 @@ from repro_torch.nn.optim import sgd as tsgd
 from repro_torch.nn.pytree import tree_leaves, tree_unflatten
 
 ARCHS = ["tinyllama-1.1b", "olmo-1b", "qwen3-0.6b", "granite-34b",
-         "mamba2-130m"]
+         "mamba2-130m", "deepseek-moe-16b", "qwen3-moe-235b-a22b"]
 # the fixture's models: each arch's smoke variant, and qwen3's at its own
 # head_dim of 128 (the smoke variant narrows it to 32)
 HD128 = "qwen3-0.6b@hd128"
-MODELS = ARCHS + [HD128]
+# (the hd128 case keeps index 5: MODELS' indices seed the batches)
+MODELS = ARCHS[:5] + [HD128] + ARCHS[5:]
 TOL = 1e-5
 GRAD_TOL = 1e-4
 B, S = 2, 32
@@ -68,12 +71,12 @@ def lm(request):
              "labels": rng.integers(0, cfg_j.vocab_size, (B, S),
                                     dtype=np.int32)}
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    logits_j, _ = jD.forward(cfg_j, params_j, jb)
+    logits_j, aux_j = jD.forward(cfg_j, params_j, jb)
     loss_j, grads_j = jax.jit(jax.value_and_grad(
         lambda p: jD.loss(cfg_j, p, jb)))(params_j)
     return dict(arch=arch, cfg_j=cfg_j, cfg_t=cfg_t, params_j=params_j,
                 params_t=params_t, batch=batch, logits_j=np.asarray(logits_j),
-                loss_j=float(loss_j), grads_j=grads_j)
+                aux_j=float(aux_j), loss_j=float(loss_j), grads_j=grads_j)
 
 
 def _tbatch(lm):
@@ -97,7 +100,8 @@ def test_forward_matches_jax(lm):
                           {"tokens": _tbatch(lm)["tokens"]})
     v = lm["cfg_j"].vocab_size
     want = lm["logits_j"][..., :v]
-    assert float(aux) == 0.0
+    assert abs(float(aux) - lm["aux_j"]) <= 1e-6
+    assert (float(aux) > 0) == (lm["cfg_t"].family == "moe")
     assert (np.abs(got[..., :v].detach().numpy() - want).max()
             / np.abs(want).max()) <= TOL
 

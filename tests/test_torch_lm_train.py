@@ -1,8 +1,9 @@
 """The LM launcher, the in-graph LLM round and the federated-LLM twin.
 
 * ``repro_torch.launch.train.main`` against ``repro.launch.train.main``
-  on the same argv (qwen3-0.6b and mamba2-130m smoke, 3 adamw steps on
-  the synthetic corpus): every step's loss rel ≤ 1e-4.
+  on the same argv (qwen3-0.6b, mamba2-130m and deepseek-moe-16b smoke,
+  3 adamw steps on the synthetic corpus; the MoE loss carries the router
+  aux term): every step's loss rel ≤ 1e-4.
 * ``core.dist.make_fl_round`` with a smoke qwen3-0.6b client (a decoder,
   whose loss has no client axis: the port loops over the rows) against
   JAX's round under none, otp and secagg, two sim rounds from the same
@@ -38,7 +39,8 @@ PARAM_TOL = 1e-5
 N_SATS, E, B, S, ROUNDS = 3, 2, 2, 16, 2
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-130m",
+                                  "deepseek-moe-16b"])
 def test_lm_launcher_matches_jax(arch, monkeypatch):
     argv = ["--arch", arch, "--smoke", "--steps", "3", "--batch", "2",
             "--seq", "32"]
