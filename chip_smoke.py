@@ -148,12 +148,14 @@ all at once) and then:
    qwen3 in bf16 and f32, tinyllama's GQA 32/4, olmo's MHA at hd 128,
    granite's MQA; the smoke steps' f32 shapes) and at phase 15's MoE
    prefill shapes (qwen3-moe-235b-a22b's GQA 64/4 at hd 128 in bf16 and
-   f32; deepseek-moe-16b's MHA 16/16 at hd 128 is olmo's shape); times
+   f32; deepseek-moe-16b's MHA 16/16 at hd 128 is olmo's shape) and at
+   phase 16's (whisper-tiny's decoder, 16 x 448, MHA 6/6 at hd 64; the
+   VLM's self layers, 4 x 2048, GQA 64/8 at hd 128; bf16 and f32); times
    the kernel (CUDA events, back to back and on the device alone), the
    plain version and
    SDPA with a boolean band mask (the library yardstick, used nowhere in
-   the port) at hymba's shapes, the three full-width training shapes and
-   qwen3-moe's, where in bf16 SDPA and the XLA path's bf16 softmax
+   the port) at hymba's shapes, the three full-width training shapes,
+   qwen3-moe's and phase 16's two bf16 shapes, where in bf16 SDPA and the XLA path's bf16 softmax
    (``blocks._sdpa_core``) must fail the bf16 limit;
 11. holds the SSD scan kernel (one launch over (batch, head, chunk)
    blocks) against its plain version (y and state ≤ 3e-5 in f32; y within
@@ -211,7 +213,32 @@ all at once) and then:
    logits over 64 tokens at capacity 16 (rel < 2e-3), and a 2-layer
    prefill of 2 x 256 tokens on the CPU against the card (rel ≤ 1e-4);
    each pair's routed experts compared layer by layer and the entries
-   that differ (near ties) counted.
+   that differ (near ties) counted;
+16. serves and trains the encoder-decoder and the VLM (ROADMAP item
+   11c) in bf16 from random weights of seed 0, the launch counts set to
+   0 just before each path and read just after, with the JAX launcher's
+   stubbed embeddings (``launch.serve.launcher_extras``,
+   ``launch.train.lm_extras``): whisper-tiny at full width and depth (4 +
+   4 layers, d 384, 1500 frames) — one ``make_prefill_step`` over 16 x
+   448 decoder tokens (exactly 4 launches of #6 at W=0 and no other
+   kernel; profiled), ``generate`` of 4 requests x (4 + 60) tokens
+   through ``prefill_cross`` (no kernel), 3 adamw steps at 16 x 448 (8
+   of #6 a step); llama-3.2-vision-90b at full width cut to 10 of 100
+   layers (2 groups of 1 cross + 4 self layers; 90 B bf16 weights do not
+   fit one card) — init (timed), one prefill of 4 x 2048 tokens with 4 x
+   1600 image tokens (exactly 8 of #6; profiled), ``generate`` of 4 x
+   (16 + 32) (no kernel); then its first group (5 layers) 3 sgd steps at
+   4 x 2048 (8 of #6 a step; adamw's moments would not fit). f32 checks,
+   TF32 off: whisper at full depth with its biases and LayerNorm leaves
+   drawn nonzero, the prefill with #6 against its plain
+   version and the CPU against the card (rel <= 1e-4), forward against
+   decode-stepped logits over 64 tokens (rel < 2e-3); the VLM's first
+   group with its tanh gates at 0.5 (so the image tokens reach the
+   logits), #6 against plain at 2 x 2048 and forward against decode;
+   the smoke VLM, CPU against card. Last, the int8 KV cache on
+   tinyllama-1.1b at full width: 4 x (16 + 32) tokens decoded on the int8
+   and the bf16 cache, logits rel < 0.05, top-1 agreement and the
+   caches' bytes printed.
 
 It prints one ``{"kernels": [...]}`` line (the layer backward as
 ``statevec_gate_layer_bwd`` beside the seven ported TPU kernels; #4 and #5
@@ -220,9 +247,11 @@ as the OTP kernel's seeded entries, each with its given-pad body under
 line, and as its last
 line ``{"ok": true, "device": {...}}``. Each kernel's ``launches_by_path``
 covers the trainer paths, the in-graph paths (``dist_*``), serving, the
-LM training runs (``lm_*``), the twin (``twin_*``) and the MoE serving
-paths (``serve_moe_*``); #6's entry carries the MoE readings under
-``moe``.
+LM training runs (``lm_*``), the twin (``twin_*``), the MoE serving
+paths (``serve_moe_*``) and phase 16's (``serve_encdec_*``,
+``serve_vlm_*``, ``lm_whisper-tiny``, ``lm_vlm``, ``serve_int8_decode``);
+#6's entry carries the MoE readings (``moe_*``) and phase 16's
+(``encdec_vlm_*``).
 Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result. Any failed phase exits
 non-zero.
@@ -231,6 +260,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
@@ -2111,10 +2141,19 @@ SWA_SHAPES = {
     "qwen3_moe_bf16": (4, 2048, 64, 4, 128, 0, "bfloat16"),
     "qwen3_moe_f32": (4, 2048, 64, 4, 128, 0, "float32"),
     "deepseek_smoke_f32": (2, 128, 4, 4, 64, 0, "float32"),
+    # phase 16: whisper-tiny's decoder self-attention (MHA 6/6, hd 64, no
+    # rope) at the prefill's 16 x 448 and the f32 checks' 2 x 448; the
+    # VLM's self layers (GQA 64/8, hd 128) at 4 x 2048 and 2 x 2048; the
+    # smoke variants' CPU-vs-card prefills (f32, 2 x 256)
+    "whisper_bf16": (16, 448, 6, 6, 64, 0, "bfloat16"),
+    "whisper_f32": (2, 448, 6, 6, 64, 0, "float32"),
+    "vlm_bf16": (4, 2048, 64, 8, 128, 0, "bfloat16"),
+    "vlm_f32": (2, 2048, 64, 8, 128, 0, "float32"),
+    "vlm_smoke_f32": (2, 256, 4, 2, 64, 0, "float32"),
 }
 SWA_TIMED = ("hymba_w1024_bf16", "hymba_w0_bf16", "qwen3_train_bf16",
              "tinyllama_train_bf16", "olmo_train_bf16", "qwen3_moe_bf16",
-             "qwen3_moe_f32")
+             "qwen3_moe_f32", "whisper_bf16", "vlm_bf16")
 # the training shapes, where the backward's plain replay is timed too
 SWA_REPLAY = ("qwen3_train_bf16", "tinyllama_train_bf16", "olmo_train_bf16")
 # name -> (B, S, H, G, P, N, dtype), chunk 128 (the divisor rule applies)
@@ -2419,6 +2458,66 @@ def _ms_per_launch(events, kernel_name: str):
     return total_us / count / 1e3 if count and total_us > 0 else None
 
 
+def _timed_prefill(torch, kops, cfg, prefill, params, batch, name, want,
+                   by_window):
+    """A warm prefill, then one timed with the counts set to 0 just
+    before and read just after: it must launch what ``want`` says and no
+    other kernel, #6 ``by_window`` ({W: launches}) times, and give finite
+    (B, padded vocab) next-token logits. Returns (logits, launches,
+    timing and the launches by window as read)."""
+    prefill(params, batch)                               # warm (cuBLAS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kops)
+    t0 = time.perf_counter()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = _counts(kops)
+    _check_lm_launches(f"{name} prefill", got, want)
+    got_window = dict(kops[2].LAUNCHES_BY_WINDOW)
+    if got_window != by_window:
+        raise PhaseError(f"{name} prefill: #6 by window {got_window}, "
+                         f"expected {by_window}")
+    B, S = batch["tokens"].shape
+    if logits.shape != (B, cfg.padded_vocab) or not bool(
+            torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+        raise PhaseError(f"{name} prefill logits {tuple(logits.shape)} not "
+                         f"finite")
+    return logits, got, {"prefill_s": dt, "prefill_tokens_per_s": B * S / dt,
+                         "prefill_peak_gb":
+                             torch.cuda.max_memory_allocated() / 1e9,
+                         "prefill_swa_launches_by_window": got_window}
+
+
+def _timed_generate(torch, kops, cfg, api, params, prompts, ngen, name,
+                    extras=None):
+    """``generate`` (greedy) of ``ngen`` tokens after ``prompts``, warm,
+    then timed with the counts set to 0 just before and read just after:
+    it must launch no kernel. Returns (launches, timing)."""
+    from repro_torch.launch.serve import generate
+    nb, npr = prompts.shape
+    generate(cfg, api, params, prompts, 2, cache_len=npr + 2, extras=extras)
+    torch.cuda.synchronize()
+    _reset(kops)
+    t0 = time.perf_counter()
+    toks = generate(cfg, api, params, prompts, ngen, cache_len=npr + ngen,
+                    extras=extras)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = _counts(kops)
+    if any(got.values()):
+        raise PhaseError(f"{name} decode launched a kernel: {got}")
+    if toks.shape != (nb, npr + ngen) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise PhaseError(f"{name}: generated tokens out of range")
+    return got, {"generate_s": dt, "decode_steps": npr + ngen,
+                 "decode_step_ms": dt / (npr + ngen) * 1e3,
+                 "decode_tokens_per_s": nb * (npr + ngen) / dt,
+                 "new_tokens_per_s": nb * ngen / dt,
+                 "sample_tokens": toks[0, npr:npr + 8].tolist()}
+
+
 def phase_serve(torch, kops):
     """hymba-1.5b at full width and depth in bf16 through the port's
     serving entry points: one prefill of 4 x 2048 tokens
@@ -2428,7 +2527,6 @@ def phase_serve(torch, kops):
     at W=1024, 3 at W=0) and #7 32 times; decode launches neither; neither
     launches a trainer kernel."""
     from repro_torch import prng
-    from repro_torch.launch.serve import generate
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import get_config, get_model
     from repro_torch.nn.pytree import tree_leaves
@@ -2446,52 +2544,16 @@ def phase_serve(torch, kops):
     prefill = make_prefill_step(cfg, api)
     launches = {}
     with torch.inference_mode():
-        prefill(params, {"tokens": tokens})          # warm (cuBLAS plans)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _reset(kops)
-        t0 = time.perf_counter()
-        logits = prefill(params, {"tokens": tokens})
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches["prefill"] = _counts(kops)
-        by_window = dict(kops[2].LAUNCHES_BY_WINDOW)
-        report.update(prefill_s=dt, prefill_tokens_per_s=B * S / dt,
-                      prefill_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-        if logits.shape != (B, cfg.padded_vocab) or not bool(
-                torch.isfinite(logits[:, :cfg.vocab_size]).all()):
-            raise PhaseError(f"prefill logits {tuple(logits.shape)} not "
-                             f"finite")
-        want = {k: 0 for k in launches["prefill"]}
-        want.update(swa_attention=32, ssd_scan=32)
-        if launches["prefill"] != want or by_window != {1024: 29, 0: 3}:
-            raise PhaseError(f"prefill launches {launches['prefill']}, "
-                             f"{by_window} by window, expected {want}, "
-                             f"29 at W=1024 and 3 at W=0")
-        report["prefill_swa_launches_by_window"] = by_window
+        logits, launches["prefill"], t = _timed_prefill(
+            torch, kops, cfg, prefill, params, {"tokens": tokens}, "hymba",
+            {"swa_attention": 32, "ssd_scan": 32}, {1024: 29, 0: 3})
+        report.update(t)
         nb, npr, ngen = SERVE_GEN
         prompts = prng.randint(prng.fold_in(key, 2), (nb, npr), 0,
                                cfg.vocab_size)
-        generate(cfg, api, params, prompts, 2, cache_len=npr + 2)   # warm
-        torch.cuda.synchronize()
-        _reset(kops)
-        t0 = time.perf_counter()
-        toks = generate(cfg, api, params, prompts, ngen,
-                        cache_len=npr + ngen)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches["decode"] = _counts(kops)
-        report.update(
-            generate_s=dt, decode_steps=npr + ngen,
-            decode_tokens_per_s=nb * (npr + ngen) / dt,
-            new_tokens_per_s=nb * ngen / dt,
-            sample_tokens=toks[0, npr:npr + 8].tolist())
-        if any(launches["decode"].values()):
-            raise PhaseError(f"decode launched a kernel: "
-                             f"{launches['decode']}")
-        if toks.shape != (nb, npr + ngen) or not bool(
-                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
-            raise PhaseError("generated tokens out of range")
+        launches["decode"], t = _timed_generate(torch, kops, cfg, api,
+                                                params, prompts, ngen, "hymba")
+        report.update(t)
         report["prefill_profile"] = _device_profile(
             torch, lambda: prefill(params, {"tokens": tokens}),
             kernels=SERVE_KERNEL_NAMES)
@@ -2515,6 +2577,62 @@ def _plain_mixers(blocks, swa_ops):
         blocks.swa_attention, blocks.ssd_scan = saved
 
 
+def _forward_vs_decode(torch, cfg, api, params, batch):
+    """Teacher-forced logits of ``batch`` against decode-stepped ones over
+    its tokens (a model with a cross cache first fills it from the
+    batch's embeddings): (rel, the forward's aux)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    full, aux = api.forward(cfg, params, batch)
+    cache = api.init_cache(cfg, B, S, device="cuda")
+    if api.prefill_cross is not None:
+        cache = api.prefill_cross(cfg, params, cache, batch.get(
+            "audio_embeds", batch.get("image_embeds")))
+    steps = []
+    for t in range(S):
+        lg, cache = api.decode_step(cfg, params, cache, {
+            "token": tokens[:, t],
+            "pos": torch.full((B,), t, dtype=torch.int32, device="cuda")})
+        steps.append(lg)
+    v = cfg.vocab_size
+    return _rel(torch.stack(steps, 1)[..., :v], full[..., :v]), float(aux)
+
+
+def _kernel_vs_plain(torch, blocks, swa_ops, cfg, api, params, batch,
+                     around=lambda i: contextlib.nullcontext()):
+    """The prefill's next-token logits with the kernels (inside
+    ``around(0)``) against their plain versions (inside ``around(1)``) on
+    the same inputs, rel."""
+    from repro_torch.launch.steps import make_prefill_step
+    prefill = make_prefill_step(cfg, api)
+    with around(0):
+        got = prefill(params, batch)
+    with _plain_mixers(blocks, swa_ops), around(1):
+        want = prefill(params, batch)
+    v = cfg.vocab_size
+    return _rel(got[:, :v], want[:, :v])
+
+
+def _cpu_vs_card(torch, cfg, api, params_cuda, batch,
+                 around=lambda i: contextlib.nullcontext()) -> dict:
+    """The prefill's next-token logits on the card (the kernels, inside
+    ``around(0)``) against the CPU (their plain versions, inside
+    ``around(1)``) from the same parameters, copied to the host, and the
+    same inputs: rel, and the CPU's seconds."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.nn.pytree import tree_map
+    prefill = make_prefill_step(cfg, api)
+    with around(0):
+        got = prefill(params_cuda, {k: x.cuda() for k, x in batch.items()})
+    params_cpu = tree_map(lambda a: a.cpu(), params_cuda)
+    t0 = time.perf_counter()
+    with around(1):
+        want = prefill(params_cpu, {k: x.cpu() for k, x in batch.items()})
+    v = cfg.vocab_size
+    return {"rel": _rel(got[:, :v].cpu(), want[:, :v]),
+            "cpu_s": time.perf_counter() - t0}
+
+
 def phase_serve_cross(torch, blocks, swa_ops):
     """Cross-checks of the serving path at full width in float32:
     forward vs decode-stepped logits over a 64-token prompt (rel < 2e-3,
@@ -2523,56 +2641,32 @@ def phase_serve_cross(torch, blocks, swa_ops):
     a 2-layer prefill on the CPU (plain) vs the card (kernels) (rel <=
     1e-4)."""
     from repro_torch import prng
-    from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import get_config, get_model
-    from repro_torch.nn.pytree import tree_map
     cfg = get_config("hymba-1.5b").replace(dtype="float32")
     api = get_model(cfg)
-    prefill = make_prefill_step(cfg, api)
+    v = cfg.vocab_size
     out = {}
     with torch.inference_mode():
         key = prng.PRNGKey(1, device="cuda")
         params = api.init(cfg, key)
-        B, S = 2, 64
-        tokens = prng.randint(prng.fold_in(key, 1), (B, S), 0,
-                              cfg.vocab_size)
-        full, _ = api.forward(cfg, params, {"tokens": tokens})
-        cache = api.init_cache(cfg, B, S, device="cuda")
-        steps = []
-        for t in range(S):
-            lg, cache = api.decode_step(cfg, params, cache, {
-                "token": tokens[:, t],
-                "pos": torch.full((B,), t, dtype=torch.int32,
-                                  device="cuda")})
-            steps.append(lg)
-        v = cfg.vocab_size
-        out["forward_vs_decode_rel"] = _rel(torch.stack(steps, 1)[..., :v],
-                                            full[..., :v])
-        B, S = 2, 2048
-        tokens = prng.randint(prng.fold_in(key, 2), (B, S), 0,
-                              cfg.vocab_size)
-        got = prefill(params, {"tokens": tokens})
-        with _plain_mixers(blocks, swa_ops):
-            want = prefill(params, {"tokens": tokens})
-        out["prefill_kernel_vs_plain_rel"] = _rel(got[:, :v], want[:, :v])
-        del params, full, cache, got, want
+        out["forward_vs_decode_rel"], _ = _forward_vs_decode(
+            torch, cfg, api, params,
+            {"tokens": prng.randint(prng.fold_in(key, 1), (2, 64), 0, v)})
+        out["prefill_kernel_vs_plain_rel"] = _kernel_vs_plain(
+            torch, blocks, swa_ops, cfg, api, params,
+            {"tokens": prng.randint(prng.fold_in(key, 2), (2, 2048), 0, v)})
+        del params
         torch.cuda.empty_cache()
 
         cfg2 = cfg.replace(n_layers=2)
-        # drawn on the card and copied: the threefry draws of 60 M
-        # parameters take ~50 s on the host's cores
-        p_cpu = tree_map(lambda a: a.cpu(),
-                         api.init(cfg2, prng.PRNGKey(2, device="cuda")))
-        tokens = prng.randint(prng.PRNGKey(3, device="cpu"), (2, 256), 0,
-                              cfg.vocab_size)
-        t0 = time.perf_counter()
-        want = make_prefill_step(cfg2, api)(p_cpu, {"tokens": tokens})
-        cpu_s = time.perf_counter() - t0
-        got = make_prefill_step(cfg2, api)(
-            tree_map(lambda a: a.cuda(), p_cpu), {"tokens": tokens.cuda()})
-        out["two_layer_cpu_vs_cuda_rel"] = _rel(got[:, :v].cpu(),
-                                                want[:, :v])
-        out["two_layer_cpu_s"] = cpu_s
+        # drawn on the card: the threefry draws of 60 M parameters take
+        # ~50 s on the host's cores
+        c = _cpu_vs_card(
+            torch, cfg2, api, api.init(cfg2, prng.PRNGKey(2, device="cuda")),
+            {"tokens": prng.randint(prng.PRNGKey(3, device="cpu"), (2, 256),
+                                    0, v)})
+        out["two_layer_cpu_vs_cuda_rel"] = c["rel"]
+        out["two_layer_cpu_s"] = c["cpu_s"]
     print("serve cross-checks: " + json.dumps(out))
     if not out["forward_vs_decode_rel"] < 2e-3:
         raise PhaseError(f"forward vs decode: rel "
@@ -2617,13 +2711,23 @@ TWIN_SECURITY = ("none", "otp", "otp_gather", "secagg")
 TWIN_ROUNDS = 2
 
 
+def _causal_layers(cfg) -> int:
+    """The layers that run the arch's own mixer (#6 or #7): every layer of
+    a decoder, the encoder-decoder's decoder layers (its encoder is
+    non-causal plain torch), the VLM's self layers (one of every
+    ``cross_every`` is a cross layer)."""
+    if cfg.family == "vlm":
+        return cfg.n_layers // cfg.cross_every * (cfg.cross_every - 1)
+    return cfg.n_layers
+
+
 def _lm_mixer_launches(cfg, steps: int) -> dict:
     """#6 and #7 launches of ``steps`` training steps: 2·L of the arch's
     own mixer a step (the forward and the per-layer recompute of the
-    backward), none of the other."""
+    backward; L its causal layers), none of the other."""
     own = ("ssd_scan" if cfg.family == "ssm" else "swa_attention")
     other = ("swa_attention" if own == "ssd_scan" else "ssd_scan")
-    return {own: 2 * cfg.n_layers * steps, other: 0}
+    return {own: 2 * _causal_layers(cfg) * steps, other: 0}
 
 
 def _check_lm_launches(name, got: dict, want: dict):
@@ -2652,6 +2756,50 @@ def _moe_loss_terms(torch, cfg, params, batch) -> dict:
         raise PhaseError(f"{cfg.name}: the loss is not ce + "
                          f"{cfg.router_aux_weight}·aux: {out}")
     return out
+
+
+def _lm_train_batches(cfg, B: int, S: int, steps: int) -> list:
+    """``steps`` (B, S) batches of the synthetic corpus on the card, each
+    joined with the training launcher's extras (none for a decoder)."""
+    from repro_torch.data.tokens import lm_batches, synthetic_corpus
+    from repro_torch.launch.train import lm_extras
+    corpus = synthetic_corpus(max(B * S * 50, 100_000), cfg.vocab_size,
+                              device="cuda")
+    ex = lm_extras(cfg, B, "cuda")
+    return [dict(b, **ex) for b in lm_batches(corpus, B, S, steps)]
+
+
+def _train_steps(torch, kops, cfg, step, params, opt_state, batches, name):
+    """``step`` (``make_train_step``) over ``batches``, each timed on the
+    host clock around its loss's synchronise, the counts set to 0 before
+    the first and read around each: a step must launch what
+    ``_lm_mixer_launches`` says and no other kernel, to a finite loss.
+    Returns (params, opt_state, the launches of all steps, report); the
+    report's ``launches_per_step`` is the last step's, as read."""
+    per_step = _lm_mixer_launches(cfg, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kops)
+    losses, step_s = [], []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        before = _counts(kops)
+        params, opt_state, loss = step(params, opt_state, batch, i)
+        losses.append(float(loss))              # synchronises
+        step_s.append(time.perf_counter() - t0)
+        after = _counts(kops)
+        one = {k: after[k] - before[k] for k in after}
+        _check_lm_launches(f"{name} step {i}", one, per_step)
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise PhaseError(f"{name}: losses {losses}")
+    B, S = batches[0]["tokens"].shape
+    warm = step_s[1:] or step_s
+    return params, opt_state, _counts(kops), {
+        "steps": len(batches), "batch": B, "seq": S, "losses": losses,
+        "step_s": step_s, "step_s_warm_mean": sum(warm) / len(warm),
+        "tokens_per_s_warm": B * S * len(warm) / sum(warm),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_per_step": {k: one[k] for k in per_step}}
 
 
 def phase_lm_train(torch, kops):
@@ -2704,39 +2852,19 @@ def phase_lm_train(torch, kops):
                  "launches_per_step": {k: got[k] / steps for k in per_step}}
         else:
             api = get_model(cfg)
-            key = prng.PRNGKey(0, device="cuda")
-            params = api.init(cfg, key)
+            params = api.init(cfg, prng.PRNGKey(0, device="cuda"))
             opt = get_optimizer("adamw", cosine_schedule(LM_LR, steps,
                                                          warmup=10))
-            opt_state = opt.init(params)
             step = make_train_step(cfg, api, opt)
-            corpus = synthetic_corpus(max(B * S * 50, 100_000),
-                                      cfg.vocab_size, device="cuda")
-            batches = list(lm_batches(corpus, B, S, steps))
+            batches = _lm_train_batches(cfg, B, S, steps)
             if cfg.family == "moe":
                 first_terms = _moe_loss_terms(torch, cfg, params, batches[0])
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            _reset(kops)
-            losses, step_s = [], []
-            for i, batch in enumerate(batches):
-                t0 = time.perf_counter()
-                before = _counts(kops)
-                params, opt_state, loss = step(params, opt_state, batch, i)
-                losses.append(float(loss))          # synchronises
-                step_s.append(time.perf_counter() - t0)
-                after = _counts(kops)
-                one = {k: after[k] - before[k] for k in after}
-                _check_lm_launches(f"lm {name} step {i}", one, per_step)
-            got = _counts(kops)
-            r = {"entry": "make_train_step", "steps": steps,
-                 "n_params": sum(x.numel() for x in tree_leaves(params)),
-                 "losses": losses, "step_s": step_s,
-                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                 "launches_per_step": {k: one[k] for k in per_step}}
-            warm = step_s[1:] or step_s
-            r["step_s_warm_mean"] = sum(warm) / len(warm)
-            r["tokens_per_s_warm"] = B * S / r["step_s_warm_mean"]
+            params, opt_state, got, r = _train_steps(
+                torch, kops, cfg, step, params, opt.init(params), batches,
+                f"lm {name}")
+            losses = r["losses"]
+            r.update(entry="make_train_step", n_params=sum(
+                x.numel() for x in tree_leaves(params)))
             if arch in LM_PROFILED:
                 batch = batches[-1]
                 r["profile"] = _device_profile(
@@ -2746,7 +2874,7 @@ def phase_lm_train(torch, kops):
                 # the terms before the first step and after the last
                 r["loss_terms"] = [first_terms, _moe_loss_terms(
                     torch, cfg, params, batches[-1])]
-            del params, opt_state, corpus, batches
+            del params, opt_state, batches
         r.update(arch=arch, batch=B, seq=S, dtype=cfg.dtype,
                  smoke=smoke, n_layers=cfg.n_layers)
         if name in LM_DEPTH:
@@ -2884,7 +3012,6 @@ def phase_serve_moe(torch, kops):
     of 16 prompt tokens and 32 new ones, launching no kernel. Each model
     is freed before the next."""
     from repro_torch import prng
-    from repro_torch.launch.serve import generate
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import get_config, get_model
     from repro_torch.nn.pytree import tree_leaves
@@ -2914,32 +3041,13 @@ def phase_serve_moe(torch, kops):
         prefill = make_prefill_step(cfg, api)
         L = cfg.n_layers
         with torch.inference_mode():
-            prefill(params, {"tokens": tokens})      # warm (cuBLAS plans)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            _reset(kops)
-            t0 = time.perf_counter()
-            logits = prefill(params, {"tokens": tokens})
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            got = _counts(kops)
-            by_window = dict(kops[2].LAUNCHES_BY_WINDOW)
+            logits, got, t = _timed_prefill(
+                torch, kops, cfg, prefill, params, {"tokens": tokens}, name,
+                {"swa_attention": L}, {0: L})
             launches[f"serve_moe_{name}_prefill"] = got
-            r.update(prefill_s=dt, prefill_tokens_per_s=B * S / dt,
-                     prefill_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                     capacity=max(int(cfg.capacity_factor * B * S
-                                      * cfg.n_experts_per_tok
-                                      / cfg.n_experts), 4))
-            if logits.shape != (B, cfg.padded_vocab) or not bool(
-                    torch.isfinite(logits[:, :cfg.vocab_size]).all()):
-                raise PhaseError(f"{name} prefill logits "
-                                 f"{tuple(logits.shape)} not finite")
-            want = {k: 0 for k in got}
-            want["swa_attention"] = L
-            if got != want or by_window != {0: L}:
-                raise PhaseError(f"{name} prefill launches {got}, "
-                                 f"{by_window} by window, expected {want} "
-                                 f"at W=0")
+            r.update(t, capacity=max(int(cfg.capacity_factor * B * S
+                                         * cfg.n_experts_per_tok
+                                         / cfg.n_experts), 4))
             r["prefill_profile"] = _device_profile(
                 torch, lambda: prefill(params, {"tokens": tokens}),
                 kernels=SERVE_KERNEL_NAMES)
@@ -2947,28 +3055,10 @@ def phase_serve_moe(torch, kops):
                 nb, npr, ngen = SERVE_GEN
                 prompts = prng.randint(prng.fold_in(key, 2), (nb, npr), 0,
                                        cfg.vocab_size)
-                generate(cfg, api, params, prompts, 2, cache_len=npr + 2)
-                torch.cuda.synchronize()
-                _reset(kops)
-                t0 = time.perf_counter()
-                toks = generate(cfg, api, params, prompts, ngen,
-                                cache_len=npr + ngen)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-                got = _counts(kops)
+                got, t = _timed_generate(torch, kops, cfg, api, params,
+                                         prompts, ngen, name)
                 launches[f"serve_moe_{name}_decode"] = got
-                r.update(generate_s=dt, decode_steps=npr + ngen,
-                         decode_step_ms=dt / (npr + ngen) * 1e3,
-                         decode_tokens_per_s=nb * (npr + ngen) / dt,
-                         new_tokens_per_s=nb * ngen / dt,
-                         sample_tokens=toks[0, npr:npr + 8].tolist())
-                if any(got.values()):
-                    raise PhaseError(f"{name} decode launched a kernel: "
-                                     f"{got}")
-                if toks.shape != (nb, npr + ngen) or not bool(
-                        ((toks >= 0) & (toks < cfg.vocab_size)).all()):
-                    raise PhaseError(f"{name}: generated tokens out of "
-                                     f"range")
+                r.update(t)
                 # one decode step under the profiler: the host's share
                 cache = api.init_cache(cfg, nb, npr + ngen, device="cuda")
                 step = {"token": prompts[:, 0], "pos": torch.zeros(
@@ -2995,9 +3085,7 @@ def phase_serve_moe_cross(torch, blocks, swa_ops):
     (#6) (rel <= 1e-4). Each pair's routed experts are compared layer by
     layer and the entries that differ counted (a near tie can flip one)."""
     from repro_torch import prng
-    from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import get_config, get_model
-    from repro_torch.nn.pytree import tree_map
     cfg = get_config("deepseek-moe-16b").replace(
         dtype="float32", n_layers=MOE_CROSS_LAYERS)
     api = get_model(cfg)
@@ -3006,56 +3094,33 @@ def phase_serve_moe_cross(torch, blocks, swa_ops):
     with torch.inference_mode():
         key = prng.PRNGKey(1, device="cuda")
         params = api.init(cfg, key)
-        B, S = 2, 2048
-        tokens = prng.randint(prng.fold_in(key, 2), (B, S), 0, v)
-        prefill = make_prefill_step(cfg, api)
-        seen_k, seen_p = [], []
-        with _routing_spy(blocks, seen_k):
-            got = prefill(params, {"tokens": tokens})
-        with _plain_mixers(blocks, swa_ops), _routing_spy(blocks, seen_p):
-            want = prefill(params, {"tokens": tokens})
-        out["prefill_kernel_vs_plain_rel"] = _rel(got[:, :v], want[:, :v])
-        out["prefill_kernel_vs_plain_flips"] = _flips(seen_k, seen_p)
-        del got, want
+        seen = ([], [])
+        out["prefill_kernel_vs_plain_rel"] = _kernel_vs_plain(
+            torch, blocks, swa_ops, cfg, api, params,
+            {"tokens": prng.randint(prng.fold_in(key, 2), (2, 2048), 0, v)},
+            around=lambda i: _routing_spy(blocks, seen[i]))
+        out["prefill_kernel_vs_plain_flips"] = _flips(*seen)
 
         cfg16 = cfg.replace(capacity_factor=MOE_DECODE_CAPACITY)
-        B, S = 2, 64
-        tokens = prng.randint(prng.fold_in(key, 1), (B, S), 0, v)
-        full, aux = api.forward(cfg16, params, {"tokens": tokens})
-        cache = api.init_cache(cfg16, B, S, device="cuda")
-        steps = []
-        for t in range(S):
-            lg, cache = api.decode_step(cfg16, params, cache, {
-                "token": tokens[:, t],
-                "pos": torch.full((B,), t, dtype=torch.int32,
-                                  device="cuda")})
-            steps.append(lg)
-        out["forward_vs_decode_rel"] = _rel(torch.stack(steps, 1)[..., :v],
-                                            full[..., :v])
-        out["forward_aux"] = float(aux)
-        del params, full, cache, steps
+        out["forward_vs_decode_rel"], out["forward_aux"] = _forward_vs_decode(
+            torch, cfg16, api, params,
+            {"tokens": prng.randint(prng.fold_in(key, 1), (2, 64), 0, v)})
+        del params
         torch.cuda.empty_cache()
 
         cfg2 = cfg.replace(n_layers=2)
-        # drawn on the card and copied: the threefry draws of 1.1 B
-        # parameters would take minutes on the host's cores
-        p_cpu = tree_map(lambda a: a.cpu(),
-                         api.init(cfg2, prng.PRNGKey(2, device="cuda")))
-        tokens = prng.randint(prng.PRNGKey(3, device="cpu"), (2, 256), 0, v)
-        seen_c, seen_g = [], []
-        t0 = time.perf_counter()
-        with _routing_spy(blocks, seen_c):
-            want = make_prefill_step(cfg2, api)(p_cpu, {"tokens": tokens})
-        out["two_layer_cpu_s"] = time.perf_counter() - t0
-        with _routing_spy(blocks, seen_g):
-            got = make_prefill_step(cfg2, api)(
-                tree_map(lambda a: a.cuda(), p_cpu),
-                {"tokens": tokens.cuda()})
-        out["two_layer_cpu_vs_cuda_rel"] = _rel(got[:, :v].cpu(),
-                                                want[:, :v])
-        out["two_layer_cpu_vs_cuda_flips"] = _flips(seen_c, seen_g)
-        out["two_layer_routed_entries"] = sum(x.numel() for x in seen_c)
-        del p_cpu, got, want
+        # drawn on the card: the threefry draws of 1.1 B parameters would
+        # take minutes on the host's cores
+        seen = ([], [])
+        c = _cpu_vs_card(
+            torch, cfg2, api, api.init(cfg2, prng.PRNGKey(2, device="cuda")),
+            {"tokens": prng.randint(prng.PRNGKey(3, device="cpu"), (2, 256),
+                                    0, v)},
+            around=lambda i: _routing_spy(blocks, seen[i]))
+        out["two_layer_cpu_s"] = c["cpu_s"]
+        out["two_layer_cpu_vs_cuda_rel"] = c["rel"]
+        out["two_layer_cpu_vs_cuda_flips"] = _flips(*seen)
+        out["two_layer_routed_entries"] = sum(x.numel() for x in seen[1])
         torch.cuda.empty_cache()
     print("serve moe cross-checks: " + json.dumps(out))
     if not out["forward_vs_decode_rel"] < 2e-3:
@@ -3066,6 +3131,299 @@ def phase_serve_moe_cross(torch, blocks, swa_ops):
             raise PhaseError(f"moe {k} = {out[k]} exceeds {MOE_CROSS_TOL} "
                              f"(routing flips: {out})")
     return out
+
+
+# --------------------------------------------------------------------------
+# The encoder-decoder and the VLM (ROADMAP item 11c), and the int8 KV
+# cache (item 11d): whisper-tiny and llama-3.2-vision-90b through the
+# serving and training entry points; #6 in every causal self-attention
+# --------------------------------------------------------------------------
+
+# llama-3.2-vision-90b's 100 layers (90 B bf16 parameters, ~180 GB) do not
+# fit one card: serving takes 10 layers (2 groups of 1 cross + 4 self
+# layers), training 1 group under sgd (adamw's two float32 moments of 6.4 B
+# parameters are 51 GB, over 80 GB with the weights and gradients)
+VLM_SERVE_LAYERS = 10
+VLM_TRAIN_LAYERS = 5
+ENCDEC_PREFILL = (16, 448)     # whisper: requests x decoder tokens
+ENCDEC_GEN = (4, 4, 60)        # requests, prompt tokens, new tokens
+ENCDEC_TRAIN = (16, 448, 3)    # batch, seq, adamw steps
+VLM_TRAIN = (4, 2048, 3)       # batch, seq, sgd steps
+VLM_GATE = 0.5                 # the f32 checks' tanh gates (0 at init)
+CROSS_TOL = 1e-4
+INT8_ARCH = "tinyllama-1.1b"
+INT8_TOL = 0.05                # tests/test_decode_parity.py's int8 bound
+
+
+def _open_gates(torch, params, value: float):
+    """The VLM's parameters with every tanh gate set to ``value`` (a fresh
+    model's zero gates switch every cross block off)."""
+    groups = dict(params["groups"])
+    cross = dict(groups["cross"])
+    for g in ("gate_attn", "gate_ffn"):
+        cross[g] = torch.full_like(cross[g], value)
+    groups["cross"] = cross
+    return dict(params, groups=groups)
+
+
+def _batch(cfg, key, fold: int, B: int, S: int) -> dict:
+    """(B, S) tokens under ``fold_in(key, fold)`` and the serving
+    launcher's embeddings."""
+    from repro_torch import prng
+    from repro_torch.launch.serve import launcher_extras
+    return dict(tokens=prng.randint(prng.fold_in(key, fold), (B, S), 0,
+                                    cfg.vocab_size),
+                **launcher_extras(cfg, key, B))
+
+
+def _nonzero_biases(params, key):
+    """``params`` with every attention and MLP bias and LayerNorm shift
+    (``bq``, ``bv``, ``bo``, ``bi``, ``b``) drawn 0.1·N(0, 1) and every
+    LayerNorm scale (``s``) 1 + 0.1·N(0, 1), each leaf under its own
+    ``fold_in`` of ``key``: a fresh whisper has them 0 and 1, which hides
+    a bias that is dropped or misplaced."""
+    from repro_torch import prng
+    index = itertools.count()
+
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif k in ("bq", "bv", "bo", "bi", "b", "s"):
+                d = 0.1 * prng.normal(prng.fold_in(key, next(index)),
+                                      tuple(v.shape))
+                out[k] = (d + (1.0 if k == "s" else 0.0)).to(v.dtype)
+            else:
+                out[k] = v
+        return out
+    return walk(params)
+
+
+def phase_encdec_vlm(torch, kops, blocks, swa_ops):
+    """Phase 16: whisper-tiny at full width and depth and
+    llama-3.2-vision-90b at full width (``VLM_SERVE_LAYERS`` layers to
+    serve, ``VLM_TRAIN_LAYERS`` to train) in bf16 from random weights of
+    seed 0 through the serving and training entry points, the launch
+    counts set to 0 just before each path and read just after: every
+    prefill launches #6 once per causal self-attention layer at W=0 and no
+    other kernel, decode none, a training step twice that; the f32 checks
+    (TF32 off); and the int8 KV cache against the bf16 one on
+    tinyllama-1.1b at full width."""
+    from repro_torch import prng
+    from repro_torch.launch.serve import generate, launcher_extras
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.models import get_config, get_model, smoke_variant
+    from repro_torch.nn.optim import cosine_schedule, get_optimizer
+    from repro_torch.nn.pytree import tree_bytes, tree_leaves, tree_map
+    launches, report = {}, {}
+    key = prng.PRNGKey(0, device="cuda")
+
+    # whisper-tiny, bf16, full width and depth
+    cfg = get_config("whisper-tiny")
+    api = get_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init(cfg, key)
+    torch.cuda.synchronize()
+    r = {"init_s": time.perf_counter() - t0,
+         "n_params": sum(x.numel() for x in tree_leaves(params))}
+    B, S = ENCDEC_PREFILL
+    batch = dict(tokens=prng.randint(prng.fold_in(key, 1), (B, S), 0,
+                                     cfg.vocab_size),
+                 **launcher_extras(cfg, key, B))
+    prefill = make_prefill_step(cfg, api)
+    with torch.inference_mode():
+        logits, got, t = _timed_prefill(
+            torch, kops, cfg, prefill, params, batch, "whisper",
+            {"swa_attention": cfg.n_layers}, {0: cfg.n_layers})
+        launches["serve_encdec_prefill"] = got
+        r.update(t)
+        r["prefill_profile"] = _device_profile(
+            torch, lambda: prefill(params, batch), kernels=SERVE_KERNEL_NAMES)
+        nb, npr, ngen = ENCDEC_GEN
+        got, t = _timed_generate(
+            torch, kops, cfg, api, params,
+            prng.randint(prng.fold_in(key, 4), (nb, npr), 0, cfg.vocab_size),
+            ngen, "whisper", launcher_extras(cfg, key, nb))
+        launches["serve_encdec_decode"] = got
+        r.update(t)
+    opt = get_optimizer("adamw", cosine_schedule(LM_LR, ENCDEC_TRAIN[2],
+                                                 warmup=10))
+    params, _, got, r["train"] = _train_steps(
+        torch, kops, cfg, make_train_step(cfg, api, opt), params,
+        opt.init(params), _lm_train_batches(cfg, *ENCDEC_TRAIN),
+        "whisper train")
+    launches["lm_whisper-tiny"] = got
+    report["whisper-tiny"] = r
+    print("encdec whisper-tiny: " + json.dumps(r))
+    del params, batch, logits
+    torch.cuda.empty_cache()
+
+    # whisper in f32 at full depth, its biases and LayerNorm leaves drawn
+    # nonzero: #6 vs plain, forward vs decode, CPU vs card
+    cfg32 = cfg.replace(dtype="float32")
+    checks = {}
+    with torch.inference_mode():
+        params = _nonzero_biases(
+            api.init(cfg32, prng.PRNGKey(1, device="cuda")),
+            prng.PRNGKey(5, device="cuda"))
+        checks["prefill_kernel_vs_plain_rel"] = _kernel_vs_plain(
+            torch, blocks, swa_ops, cfg32, api, params,
+            _batch(cfg32, key, 6, 2, 448))
+        checks["forward_vs_decode_rel"], _ = _forward_vs_decode(
+            torch, cfg32, api, params, _batch(cfg32, key, 5, 2, 64))
+        c = _cpu_vs_card(torch, cfg32, api, params,
+                         _batch(cfg32, key, 7, 2, 448))
+        checks.update(cpu_vs_card_rel=c["rel"], cpu_prefill_s=c["cpu_s"])
+    report["whisper_f32"] = checks
+    print("encdec whisper-tiny f32 checks: " + json.dumps(checks))
+    del params
+    torch.cuda.empty_cache()
+
+    # llama-3.2-vision-90b, bf16, full width, VLM_SERVE_LAYERS layers
+    full_cfg = get_config("llama-3.2-vision-90b")
+    cfg = full_cfg.replace(n_layers=VLM_SERVE_LAYERS)
+    api = get_model(cfg)
+    r = {"n_layers": cfg.n_layers, "reduced": {
+        "n_layers": f"{full_cfg.n_layers} -> {cfg.n_layers}"}}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(cfg, key)
+    torch.cuda.synchronize()
+    r.update(init_s=time.perf_counter() - t0,
+             init_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+             n_params=sum(x.numel() for x in tree_leaves(params)),
+             param_gb=tree_bytes(params) / 1e9)
+    B, S = SERVE_PREFILL
+    batch = dict(tokens=prng.randint(prng.fold_in(key, 1), (B, S), 0,
+                                     cfg.vocab_size),
+                 **launcher_extras(cfg, key, B))
+    prefill = make_prefill_step(cfg, api)
+    n_self = _causal_layers(cfg)
+    with torch.inference_mode():
+        logits, got, t = _timed_prefill(
+            torch, kops, cfg, prefill, params, batch, "vlm",
+            {"swa_attention": n_self}, {0: n_self})
+        launches["serve_vlm_prefill"] = got
+        r.update(t)
+        r["prefill_profile"] = _device_profile(
+            torch, lambda: prefill(params, batch), kernels=SERVE_KERNEL_NAMES)
+        nb, npr, ngen = SERVE_GEN
+        got, t = _timed_generate(
+            torch, kops, cfg, api, params,
+            prng.randint(prng.fold_in(key, 4), (nb, npr), 0, cfg.vocab_size),
+            ngen, "vlm", launcher_extras(cfg, key, nb))
+        launches["serve_vlm_decode"] = got
+        r.update(t)
+    del batch, logits
+    # the first group (VLM_TRAIN_LAYERS layers) of these weights, copied
+    cfg1 = full_cfg.replace(n_layers=VLM_TRAIN_LAYERS)
+    params = dict(params, groups=tree_map(lambda a: a[:1].clone(),
+                                          params["groups"]))
+    torch.cuda.empty_cache()
+
+    # the VLM in f32 at 1 group, gates open: #6 vs plain, forward vs decode
+    checks = {}
+    with torch.inference_mode():
+        cfg32 = cfg1.replace(dtype="float32")
+        p32 = _open_gates(torch, tree_map(lambda a: a.float(), params),
+                          VLM_GATE)
+        checks["prefill_kernel_vs_plain_rel"] = _kernel_vs_plain(
+            torch, blocks, swa_ops, cfg32, api, p32,
+            _batch(cfg32, key, 6, 2, 2048))
+        checks["forward_vs_decode_rel"], _ = _forward_vs_decode(
+            torch, cfg32, api, p32, _batch(cfg32, key, 5, 2, 64))
+        del p32
+        torch.cuda.empty_cache()
+        # the smoke variant, CPU vs card (a full-width layer is 3.4 GB in
+        # f32 on the host)
+        cfgs = smoke_variant(full_cfg)
+        ps = _open_gates(torch, api.init(cfgs, prng.PRNGKey(2, "cuda")),
+                         VLM_GATE)
+        c = _cpu_vs_card(torch, cfgs, api, ps, _batch(cfgs, key, 7, 2, 256))
+        checks.update(smoke_cpu_vs_card_rel=c["rel"])
+    report["vlm_f32"] = checks
+    print("vlm f32 checks: " + json.dumps(checks))
+
+    # training at 1 group under sgd
+    opt = get_optimizer("sgd", cosine_schedule(LM_LR, VLM_TRAIN[2],
+                                               warmup=10))
+    params, _, got, r["train"] = _train_steps(
+        torch, kops, cfg1, make_train_step(cfg1, api, opt), params,
+        opt.init(params), _lm_train_batches(cfg1, *VLM_TRAIN), "vlm train")
+    r["train"].update(n_layers=cfg1.n_layers, optimizer="sgd",
+                      n_params=sum(x.numel() for x in tree_leaves(params)))
+    launches["lm_vlm"] = got
+    report["llama-3.2-vision-90b"] = r
+    print("vlm llama-3.2-vision-90b: " + json.dumps(r))
+    del params
+    torch.cuda.empty_cache()
+
+    # the int8 KV cache against the bf16 one: tinyllama at full width,
+    # greedy tokens from the bf16 cache, then both caches teacher-forced
+    # over them
+    cfg = get_config(INT8_ARCH)
+    api = get_model(cfg)
+    nb, npr, ngen = SERVE_GEN
+    out = {}
+    with torch.inference_mode():
+        params = api.init(cfg, key)
+        prompts = prng.randint(prng.fold_in(key, 2), (nb, npr), 0,
+                               cfg.vocab_size)
+        toks = generate(cfg, api, params, prompts, ngen, npr + ngen)
+        logits = {}
+        for kv in ("bfloat16", "int8"):
+            c = cfg.replace(kv_cache_dtype=kv)
+            cache = api.init_cache(c, nb, npr + ngen, device="cuda")
+            out[f"cache_bytes_{kv}"] = tree_bytes(cache)
+            _reset(kops)
+            t0 = time.perf_counter()
+            steps = []
+            for t in range(npr + ngen):
+                lg, cache = api.decode_step(c, params, cache, {
+                    "token": toks[:, t], "pos": torch.full(
+                        (nb,), t, dtype=torch.int32, device="cuda")})
+                steps.append(lg)
+            logits[kv] = torch.stack(steps, 1)[..., :cfg.vocab_size]
+            torch.cuda.synchronize()
+            out[f"decode_step_ms_{kv}"] = ((time.perf_counter() - t0)
+                                           / (npr + ngen) * 1e3)
+            got = _counts(kops)
+            if any(got.values()):
+                raise PhaseError(f"int8 check: decode launched {got}")
+        launches["serve_int8_decode"] = got
+        out["logits_rel"] = _rel(logits["int8"], logits["bfloat16"])
+        out["top1_agreement"] = (logits["int8"].argmax(-1) == logits[
+            "bfloat16"].argmax(-1)).float().mean().item()
+        out["cache_bytes_ratio"] = (out["cache_bytes_int8"]
+                                    / out["cache_bytes_bfloat16"])
+    report["int8_kv"] = out
+    print(f"int8 kv cache ({INT8_ARCH}): " + json.dumps(out))
+    del params, logits
+    torch.cuda.empty_cache()
+
+    for name, c in launches.items():
+        print(f"encdec/vlm launches {name}: " + json.dumps(
+            {k: v for k, v in c.items() if v}))
+    bad = {k: v for k, v in (
+        ("whisper prefill kernel vs plain",
+         report["whisper_f32"]["prefill_kernel_vs_plain_rel"]),
+        ("whisper cpu vs card", report["whisper_f32"]["cpu_vs_card_rel"]),
+        ("vlm prefill kernel vs plain",
+         report["vlm_f32"]["prefill_kernel_vs_plain_rel"]),
+        ("vlm smoke cpu vs card",
+         report["vlm_f32"]["smoke_cpu_vs_card_rel"])) if not v <= CROSS_TOL}
+    for name in ("whisper_f32", "vlm_f32"):
+        v = report[name]["forward_vs_decode_rel"]
+        if not v < 2e-3:
+            bad[f"{name} forward vs decode"] = v
+    if not out["logits_rel"] < INT8_TOL:
+        bad["int8 vs bf16 cache logits"] = out["logits_rel"]
+    if bad:
+        raise PhaseError(f"phase 16 checks out of bounds: {bad}")
+    return launches, report
 
 
 def main() -> int:
@@ -3142,6 +3500,10 @@ def main() -> int:
     launches.update(moe_launches)
     moe_cross = phase_serve_moe_cross(torch, blocks, swa_ops)
     print(f"phase 15 (MoE serving): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ev_launches, ev_report = phase_encdec_vlm(torch, kops, blocks, swa_ops)
+    launches.update(ev_launches)
+    print(f"phase 16 (encdec, VLM, int8 KV): {time.perf_counter() - t0:.1f} s")
 
     t = timings["ansatz"]
     entries = [{
@@ -3262,6 +3624,18 @@ def main() -> int:
         name: (r["prefill_profile"] or {}).get("ms_per_launch", {}).get(
             SERVE_KERNEL_NAMES[0]) for name, r in moe_report.items()}
     swa_entry["moe_f32_cross_checks"] = moe_cross
+    # #6 in phase 16's prefills (whisper's decoder, the VLM's self layers):
+    # its device time per launch from each prefill's profile, launches a
+    # training step, and the f32 checks
+    swa_entry["encdec_vlm_prefill_device_ms_per_launch"] = {
+        name: (ev_report[name]["prefill_profile"] or {}).get(
+            "ms_per_launch", {}).get(SERVE_KERNEL_NAMES[0])
+        for name in ("whisper-tiny", "llama-3.2-vision-90b")}
+    swa_entry["encdec_vlm_train_launches_per_step"] = {
+        name: ev_report[name]["train"]["launches_per_step"]["swa_attention"]
+        for name in ("whisper-tiny", "llama-3.2-vision-90b")}
+    swa_entry["encdec_vlm_f32_checks"] = {
+        k: ev_report[k] for k in ("whisper_f32", "vlm_f32", "int8_kv")}
     for entry in entries:
         # launches as read on every path: the trainer paths, the prefill
         # and decode, each counted from 0 (a kernel's own paths are its

@@ -58,6 +58,20 @@ def input_specs(cfg: ArchConfig, shape: InputShape) -> dict:
     return {"token": spec((B,)), "pos": spec((B,))}
 
 
+def stub_embeds(cfg: ArchConfig, batch: int, audio_key, image_key) -> dict:
+    """The JAX launchers' stand-in for the stubbed frontends: 0.02 times a
+    float32 standard normal draw, audio frames (encdec) under
+    ``audio_key`` or image tokens (vlm) under ``image_key``; nothing for
+    the other families."""
+    if cfg.family == "encdec":
+        return {"audio_embeds": 0.02 * prng.normal(
+            audio_key, (batch, cfg.n_audio_frames, cfg.d_model))}
+    if cfg.family == "vlm":
+        return {"image_embeds": 0.02 * prng.normal(
+            image_key, (batch, cfg.n_image_tokens, cfg.d_model))}
+    return {}
+
+
 def _opt_for(cfg: ArchConfig, name: str = "sgd") -> Optimizer:
     return get_optimizer(name, inv_sqrt_schedule(1e-2))
 
@@ -80,10 +94,11 @@ def make_train_step(cfg: ArchConfig, api: ModelApi, optimizer: Optimizer,
 
 
 def make_prefill_step(cfg: ArchConfig, api: ModelApi, ctx=None):
-    """(params, {"tokens": (B, S)}) -> next-token logits (B, Vp): the last
-    position of ``api.forward``, with the LM head applied to that position
-    only (XLA pushes the JAX package's slice through the matmul; eager
-    torch would compute every position's logits)."""
+    """(params, {"tokens": (B, S)}, plus "audio_embeds" or "image_embeds"
+    for encdec and vlm) -> next-token logits (B, Vp): the last position of
+    ``api.forward``, with the LM head applied to that position only (XLA
+    pushes the JAX package's slice through the matmul; eager torch would
+    compute every position's logits)."""
     def prefill_step(params, batch):
         return api.prefill(cfg, params, batch, ctx)
     return prefill_step

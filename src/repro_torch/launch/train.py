@@ -2,15 +2,13 @@
 
 Two entry modes, both on the GPU unless ``--device cpu`` is given:
 
-  * LM pretraining on the synthetic corpus, for the dense, moe and ssm
-    archs (and the hybrid hymba-1.5b); ``--smoke`` takes the reduced
-    config:
+  * LM pretraining on the synthetic corpus, for every arch but the VQC
+    (dense, moe, ssm, hybrid, and the encdec and vlm archs, whose batches
+    carry the JAX launcher's stubbed audio or image embeddings);
+    ``--smoke`` takes the reduced config:
 
       PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
           --smoke --steps 50 --batch 8 --seq 128
-
-    The encdec and vlm archs wait for ROADMAP queue 1, item 11c: they
-    raise, naming it.
 
   * sat-QFL federated training (``--fl``): the in-graph stacked-satellite
     round (``repro_torch.core.dist``), every satellite a row of one stacked
@@ -46,12 +44,22 @@ _LM_FLAGS = {"arch": "tinyllama-1.1b", "smoke": False, "steps": 30,
              "seq": 128, "optimizer": "adamw"}
 
 
+def lm_extras(cfg, batch: int, device) -> dict:
+    """The JAX launcher's embeddings, joined to every batch:
+    ``steps.stub_embeds`` under ``PRNGKey(1)`` (audio) or ``PRNGKey(2)``
+    (image)."""
+    from repro_torch import prng
+    from repro_torch.launch.steps import stub_embeds
+    return stub_embeds(cfg, batch, prng.PRNGKey(1, device),
+                       prng.PRNGKey(2, device))
+
+
 def run_lm(args):
     """LM pretraining: ``--steps`` steps of ``make_train_step`` on
-    ``lm_batches`` of the synthetic corpus under ``--optimizer`` with the
-    JAX launcher's cosine schedule (warmup 10), on ``--device``. Resumes
-    from ``--ckpt-dir`` and saves there a third of the way through.
-    Returns the loss of every step it ran."""
+    ``lm_batches`` of the synthetic corpus (with ``lm_extras``) under
+    ``--optimizer`` with the JAX launcher's cosine schedule (warmup 10), on
+    ``--device``. Resumes from ``--ckpt-dir`` and saves there a third of
+    the way through. Returns the loss of every step it ran."""
     from repro_torch import prng
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data.tokens import lm_batches, synthetic_corpus
@@ -85,12 +93,14 @@ def run_lm(args):
             (params, opt_state), start, _ = mgr.restore((params, opt_state))
             print(f"[train] resumed from step {start}")
 
+    ex = lm_extras(cfg, args.batch, dev)
     t0 = time.time()
     losses = []
     for i, batch in enumerate(lm_batches(corpus, args.batch, args.seq,
                                          args.steps, seed=args.seed)):
         if i < start:
             continue
+        batch.update(ex)
         params, opt_state, loss = step(params, opt_state, batch, i)
         losses.append(float(loss))
         if i % max(args.steps // 10, 1) == 0:

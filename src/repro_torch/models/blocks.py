@@ -14,17 +14,20 @@ Conventions:
   window     0 = full causal attention; >0 = sliding window (ring cache)
 
 The full-sequence forward runs its two sequence mixers through the
-hand-written kernels: ``attn_apply`` through ``kernels.swa_attention`` and
-``ssm_apply`` through ``kernels.ssd_scan`` (each takes its plain version
-on CPU tensors; each backward replays the plain version). Single-token
-decode is plain torch, as in the JAX package. Ported here: the parts the
-dense, moe, ssm and hybrid decoders need (attention with GQA, MQA and
-qk-norm, SwiGLU FFN, the capacity-dispatched MoE FFN, Mamba-2). The MoE
-layer has no kernel in the JAX package either: routing, dispatch and
-combine are plain torch, the experts three batched matmuls. Not yet:
-expert parallelism over a device mesh (ROADMAP queue 1, item 12b),
-cross-attention (11c), the query-chunked attention and the int8 KV cache
-(11d).
+hand-written kernels: causal ``attn_apply`` through
+``kernels.swa_attention`` and ``ssm_apply`` through ``kernels.ssd_scan``
+(each takes its plain version on CPU tensors; each backward replays the
+plain version). Non-causal self-attention (the whisper encoder), every
+cross-attention and single-token decode are plain torch, as in the JAX
+package, which has no kernel for them either; past
+``QCHUNK_THRESHOLD`` tokens non-causal attention runs in query chunks.
+Ported here: attention with GQA, MQA, qk-norm, biases, self and cross
+(encoder-decoder, VLM), the ring-buffer KV cache in the model dtype or
+int8 with float16 scales, SwiGLU FFN, the capacity-dispatched MoE FFN,
+Mamba-2. The MoE layer has no kernel in the JAX package either: routing,
+dispatch and combine are plain torch, the experts three batched matmuls.
+Not yet: expert parallelism over a device mesh (ROADMAP queue 1, item
+12b).
 """
 from __future__ import annotations
 
@@ -75,13 +78,16 @@ def norm_init(cfg: ArchConfig, L: int | None, dtype, device):
 
 
 # =========================================================================
-# Attention (self, GQA, qk-norm, sliding window, ring-buffer cache)
+# Attention (self / cross, GQA, qk-norm, sliding window, ring-buffer cache)
 # =========================================================================
 
-def attn_init(key, cfg: ArchConfig, L: int | None, dtype):
+def attn_init(key, cfg: ArchConfig, L: int | None, dtype, bias: bool = False):
+    """Stacked attention weights; ``bias`` adds the q, v and output
+    biases (whisper's; no k bias), zero-initialised."""
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
     pre = _pre(L)
     ks = prng.split(key, 4)
+    dev = key.device
     p = {
         "wq": scaled_init(ks[0], pre + (d, H * hd), dtype),
         "wk": scaled_init(ks[1], pre + (d, KV * hd), dtype),
@@ -89,8 +95,12 @@ def attn_init(key, cfg: ArchConfig, L: int | None, dtype):
         "wo": scaled_init(ks[3], pre + (H * hd, d), dtype),
     }
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones(pre + (hd,), dtype=dtype, device=key.device)
-        p["k_norm"] = torch.ones(pre + (hd,), dtype=dtype, device=key.device)
+        p["q_norm"] = torch.ones(pre + (hd,), dtype=dtype, device=dev)
+        p["k_norm"] = torch.ones(pre + (hd,), dtype=dtype, device=dev)
+    if bias:
+        p["bq"] = torch.zeros(pre + (H * hd,), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros(pre + (KV * hd,), dtype=dtype, device=dev)
+        p["bo"] = torch.zeros(pre + (d,), dtype=dtype, device=dev)
     return p
 
 
@@ -100,9 +110,16 @@ def _project_qkv(p, cfg: ArchConfig, xq, xkv, cos_q=None, sin_q=None,
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     Bq, Sq, _ = xq.shape
     Bk, Sk, _ = xkv.shape
-    q = (xq @ p["wq"]).reshape(Bq, Sq, H, hd)
-    k = (xkv @ p["wk"]).reshape(Bk, Sk, KV, hd)
-    v = (xkv @ p["wv"]).reshape(Bk, Sk, KV, hd)
+    q = xq @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    k = xkv @ p["wk"]
+    v = xkv @ p["wv"]
+    if "bv" in p:
+        v = v + p["bv"]
+    q = q.reshape(Bq, Sq, H, hd)
+    k = k.reshape(Bk, Sk, KV, hd)
+    v = v.reshape(Bk, Sk, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -115,8 +132,9 @@ def _project_qkv(p, cfg: ArchConfig, xq, xkv, cos_q=None, sin_q=None,
 
 def _sdpa_core(q, k, v, mask):
     """Softmax attention: q (B,Sq,H,hd), k/v (B,Sk,H,hd), mask (B,1,Sq,Sk)
-    -> (B,Sq,H,hd). Softmax statistics in fp32; the score and probability
-    tensors stay in the activation dtype, as in the JAX package."""
+    or None -> (B,Sq,H,hd). Softmax statistics in fp32; the score and
+    probability tensors stay in the activation dtype, as in the JAX
+    package."""
     hd = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
     if mask is not None:
@@ -128,45 +146,117 @@ def _sdpa_core(q, k, v, mask):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _sdpa(q, k, v, mask, out_proj):
+def _out_proj(o, p):
+    """(B, S, H·hd) through ``wo``, plus ``bo`` where present."""
+    y = o @ p["wo"]
+    return y + p["bo"] if "bo" in p else y
+
+
+def _sdpa(q, k, v, mask, p):
     o = _sdpa_core(q, k, v, mask)
-    return o.reshape(o.shape[0], o.shape[1], -1) @ out_proj
+    return _out_proj(o.reshape(o.shape[0], o.shape[1], -1), p)
+
+
+# sequences longer than this compute non-causal attention in query chunks:
+# exact softmax per chunk, O(S·chunk) memory instead of O(S²)
+QCHUNK_THRESHOLD = 8192
+QCHUNK = 512
+
+
+def _attn_qchunked(q, k, v, positions, causal, window, chunk=QCHUNK):
+    """``_sdpa_core`` over chunks of queries (the largest divisor of S not
+    above ``chunk``), each chunk's mask from the positions: k/v (B, S, H,
+    hd) already repeated to H heads."""
+    B, S, H, hd = q.shape
+    c = min(chunk, S)
+    while S % c != 0:
+        c -= 1
+    pk = positions[:, None, :]                               # (B,1,S)
+    outs = []
+    for z in range(0, S, c):
+        pq = positions[:, z:z + c, None]                     # (B,c,1)
+        mask = torch.ones((B, c, S), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= pk <= pq
+        if window > 0:
+            mask &= pk > pq - window
+        outs.append(_sdpa_core(q[:, z:z + c], k, v, mask[:, None]))
+    return torch.cat(outs, dim=1)
 
 
 def attn_apply(p, cfg: ArchConfig, x, positions, *, window: int = 0,
-               ctx=None):
-    """Full-sequence causal self-attention (training / prefill), through
-    ``kernels.swa_attention``. The kernel bands by row index, so positions
-    must be ``arange(S)`` in every row, as ``decoder.forward_hidden``
-    passes them (they also give the rope angles). ``ctx`` is accepted and
-    ignored."""
+               causal: bool = True, use_rope: bool = True, ctx=None):
+    """Full-sequence self-attention (training / prefill). Causal attention
+    runs through ``kernels.swa_attention``, which bands by row index, so
+    positions must be ``arange(S)`` in every row, as the models pass them
+    (they also give the rope angles). Non-causal attention (the whisper
+    encoder) is the plain softmax, its mask the window's alone, in query
+    chunks past ``QCHUNK_THRESHOLD``. ``ctx`` is accepted and ignored."""
     B, S, _ = x.shape
-    cos, sin = rope_angles(positions, cfg.hd, cfg.rope_theta)
+    cos = sin = None
+    if use_rope:
+        cos, sin = rope_angles(positions, cfg.hd, cfg.rope_theta)
     q, k, v = _project_qkv(p, cfg, x, x, cos, sin, cos, sin)
-    return swa_attention(q, k, v, window).reshape(B, S, -1) @ p["wo"]
+    if causal:
+        return _out_proj(swa_attention(q, k, v, window).reshape(B, S, -1), p)
+    k = _repeat_kv(k, cfg.n_heads)
+    v = _repeat_kv(v, cfg.n_heads)
+    if S > QCHUNK_THRESHOLD:
+        o = _attn_qchunked(q, k, v, positions, False, window)
+        return _out_proj(o.reshape(B, S, -1), p)
+    mask = None
+    if window > 0:
+        mask = (positions[:, None, :] > positions[:, :, None] - window)[:, None]
+    return _sdpa(q, k, v, mask, p)
+
+
+def cross_attn_apply(p, cfg: ArchConfig, x, kv_states):
+    """Cross-attention: q from text x, k/v from encoder/vision states."""
+    q, k, v = _project_qkv(p, cfg, x, kv_states)
+    k = _repeat_kv(k, cfg.n_heads)
+    v = _repeat_kv(v, cfg.n_heads)
+    return _sdpa(q, k, v, None, p)
 
 
 def attn_cache_init(cfg: ArchConfig, L: int | None, batch: int,
                     cache_len: int, dtype, device) -> dict:
     """Ring-buffer KV cache. ``pos`` holds the absolute position stored in
-    each slot (-1 = empty). The int8 cache of the JAX package is not
-    ported yet."""
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError("the int8 KV cache is not ported yet "
-                                  "(ROADMAP queue 1, item 11d)")
+    each slot (-1 = empty).
+
+    kv_cache_dtype == "int8": K/V stored quantized with per-(slot, head)
+    float16 scales, which halves the cache's bytes."""
     KV, hd = cfg.n_kv_heads, cfg.hd
     pre = _pre(L)
-    return {
-        "pos": torch.full(pre + (batch, cache_len), -1, dtype=torch.int32,
-                          device=device),
-        "k": torch.zeros(pre + (batch, cache_len, KV, hd), dtype=dtype,
-                         device=device),
-        "v": torch.zeros(pre + (batch, cache_len, KV, hd), dtype=dtype,
-                         device=device),
-    }
+    zeros = lambda shape, dt: torch.zeros(pre + shape, dtype=dt,
+                                          device=device)
+    cache = {"pos": torch.full(pre + (batch, cache_len), -1,
+                               dtype=torch.int32, device=device)}
+    if cfg.kv_cache_dtype == "int8":
+        for n in ("k", "v"):
+            cache[n] = zeros((batch, cache_len, KV, hd), torch.int8)
+            cache[n + "_scale"] = zeros((batch, cache_len, KV),
+                                        torch.float16)
+    else:
+        for n in ("k", "v"):
+            cache[n] = zeros((batch, cache_len, KV, hd), dtype)
+    return cache
 
 
-def attn_decode(p, cfg: ArchConfig, x, pos, cache, *, window: int = 0):
+def _quant_kv(x):
+    """(B, KV, hd) -> int8 values + per-head float16 scale: the scale
+    max|x| / 127 + 1e-9 in float32, the values rounded half to even."""
+    xf = x.to(_F32)
+    scale = torch.amax(torch.abs(xf), dim=-1) / 127.0 + 1e-9
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.float16)
+
+
+def _dequant_kv(q, scale, dtype):
+    return (q.to(_F32) * scale.to(_F32)[..., None]).to(dtype)
+
+
+def attn_decode(p, cfg: ArchConfig, x, pos, cache, *, window: int = 0,
+                use_rope: bool = True):
     """Single-token decode. x (B,1,d); pos (B,) absolute position.
 
     Returns (y (B,1,d), new_cache). The cache slot is pos % cache_len — a
@@ -175,23 +265,68 @@ def attn_decode(p, cfg: ArchConfig, x, pos, cache, *, window: int = 0):
     The given cache is not written: the new one is a copy.
     """
     B = x.shape[0]
-    cos, sin = rope_angles(pos[:, None], cfg.hd, cfg.rope_theta)
+    cos = sin = None
+    if use_rope:
+        cos, sin = rope_angles(pos[:, None], cfg.hd, cfg.rope_theta)
     q, k, v = _project_qkv(p, cfg, x, x, cos, sin, cos, sin)
-    ck, cv, cpos = cache["k"].clone(), cache["v"].clone(), cache["pos"].clone()
-    Sc = ck.shape[1]
-    slot = (pos % Sc).long()
+    new = {n: t.clone() for n, t in cache.items()}
+    slot = (pos % new["k"].shape[1]).long()
     bidx = torch.arange(B, device=x.device)
-    ck[bidx, slot] = k[:, 0].to(ck.dtype)
-    cv[bidx, slot] = v[:, 0].to(cv.dtype)
+    if cfg.kv_cache_dtype == "int8":
+        for n, t in (("k", k), ("v", v)):
+            new[n][bidx, slot], new[n + "_scale"][bidx, slot] = _quant_kv(
+                t[:, 0])
+        k_use = _dequant_kv(new["k"], new["k_scale"], x.dtype)
+        v_use = _dequant_kv(new["v"], new["v_scale"], x.dtype)
+    else:
+        new["k"][bidx, slot] = k[:, 0].to(new["k"].dtype)
+        new["v"][bidx, slot] = v[:, 0].to(new["v"].dtype)
+        k_use, v_use = new["k"], new["v"]
+    cpos = new["pos"]
     cpos[bidx, slot] = pos.to(cpos.dtype)
-    kk = _repeat_kv(ck, cfg.n_heads)
-    vv = _repeat_kv(cv, cfg.n_heads)
+    kk = _repeat_kv(k_use, cfg.n_heads)
+    vv = _repeat_kv(v_use, cfg.n_heads)
     valid = (cpos >= 0) & (cpos <= pos[:, None])
     if window > 0:
         valid &= cpos > (pos[:, None] - window)
     mask = valid[:, None, None, :]      # (B,1,1,Sc)
-    y = _sdpa(q, kk, vv, mask, p["wo"])
-    return y, {"k": ck, "v": cv, "pos": cpos}
+    return _sdpa(q, kk, vv, mask, p), new
+
+
+def cross_attn_cache_init(cfg: ArchConfig, L: int | None, batch: int,
+                          n_kv: int, dtype, device) -> dict:
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    shape = _pre(L) + (batch, n_kv, KV, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cross_attn_prefill_cache(p, cfg: ArchConfig, kv_states):
+    """Precompute cross-attention K/V from encoder states (done once)."""
+    B, Sk, _ = kv_states.shape
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    k = (kv_states @ p["wk"]).reshape(B, Sk, KV, hd)
+    v = kv_states @ p["wv"]
+    if "bv" in p:
+        v = v + p["bv"]
+    v = v.reshape(B, Sk, KV, hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return {"k": k, "v": v}
+
+
+def cross_attn_decode(p, cfg: ArchConfig, x, cache):
+    """Decode-time cross-attention against precomputed K/V."""
+    B = x.shape[0]
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    q = q.reshape(B, 1, cfg.n_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    kk = _repeat_kv(cache["k"], cfg.n_heads)
+    vv = _repeat_kv(cache["v"], cfg.n_heads)
+    return _sdpa(q, kk, vv, None, p)
 
 
 # =========================================================================
@@ -447,9 +582,10 @@ def _causal_conv(u, w, b):
     return (y + b.to(_F32)).to(u.dtype)
 
 
-def ssm_apply(p, cfg: ArchConfig, x, *, chunk: int = 128):
+def ssm_apply(p, cfg: ArchConfig, x, *, chunk: int = 128, ssd_fn=None):
     """Full-sequence Mamba-2 mixer (training / prefill), the scan through
-    ``kernels.ssd_scan``."""
+    ``kernels.ssd_scan``, or through ``ssd_fn`` where one is given (for
+    instance ``ssd_ref``), called as the scan is."""
     B, S, d = x.shape
     nh, hd = cfg.ssm_nheads, cfg.ssm_headdim
     G, N = cfg.ssm_ngroups, cfg.ssm_state
@@ -468,7 +604,7 @@ def ssm_apply(p, cfg: ArchConfig, x, *, chunk: int = 128):
 
     A = -torch.exp(p["A_log"])
     xh = xin.reshape(B, S, nh, hd)
-    y, _ = ssd_scan(xh, dt, A, Bv, Cv, chunk=chunk)
+    y, _ = (ssd_fn or ssd_scan)(xh, dt, A, Bv, Cv, chunk=chunk)
     y = y + xh * p["D"][None, None, :, None].to(y.dtype)
     y = y.reshape(B, S, cfg.d_inner)
     y = rms_norm(y * F.silu(z.to(_F32)).to(y.dtype), p["gnorm"],

@@ -1,9 +1,8 @@
 """Architecture configuration (a copy of ``repro.models.config.ArchConfig``).
 
 One frozen dataclass covers every model family; family-specific fields
-default to "off". The port runs the ``vqc`` family and the dense, moe,
-ssm and hybrid decoders; the encdec and vlm fields are kept so the rest
-of the client zoo can be ported against the same config.
+default to "off". The port runs every family: the ``vqc``, the dense,
+moe, ssm and hybrid decoders, the encoder-decoder and the VLM.
 """
 from __future__ import annotations
 

@@ -31,7 +31,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.config import ArchConfig
 from repro_torch.nn.init import normal_init, scaled_init
-from repro_torch.nn.pytree import tree_map
+from repro_torch.nn.pytree import tree_map, tree_stack
 
 
 @dataclass(frozen=True)
@@ -160,6 +160,14 @@ def _layer_apply(cfg: ArchConfig, seg: SegmentSpec, lp, x, positions, ctx):
     return x, aux
 
 
+def _remat(fn, x, remat: bool):
+    """fn(x), under one non-reentrant checkpoint when ``remat``: the
+    backward recomputes its activations."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+    return fn(x)
+
+
 def _run_segment(cfg, seg, sp, x, positions, ctx, remat: bool):
     """The segment's layers in order: (x, the sum of their aux). Under
     ``remat`` (with autograd on) each layer is one non-reentrant
@@ -168,13 +176,8 @@ def _run_segment(cfg, seg, sp, x, positions, ctx, remat: bool):
     remat = remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(seg.n_layers):
-        if remat:
-            x, a = torch.utils.checkpoint.checkpoint(
-                lambda x, i=i: _layer_apply(cfg, seg, _layer(sp, i), x,
-                                            positions, ctx),
-                x, use_reentrant=False)
-        else:
-            x, a = _layer_apply(cfg, seg, _layer(sp, i), x, positions, ctx)
+        x, a = _remat(lambda x, i=i: _layer_apply(cfg, seg, _layer(sp, i), x,
+                                                  positions, ctx), x, remat)
         aux = aux + a
     return x, aux
 
@@ -325,7 +328,7 @@ def decode_step(cfg: ArchConfig, params, cache, batch, ctx=None):
             x, nc = _layer_decode(cfg, seg, _layer(sp, i), _layer(sc, i), x,
                                   pos, ctx)
             layers.append(nc)
-        new_segments.append(tree_map(lambda *xs: torch.stack(xs), *layers))
+        new_segments.append(tree_stack(layers))
     x = B._norm(cfg, x, params.get("final_norm"))
     logits = _logits(cfg, params, x)
     return logits[:, 0, :], {"segments": new_segments}

@@ -1,10 +1,12 @@
 """Model registry: arch id -> (config, ModelApi) (port of ``repro.models.registry``).
 
-The port runs the paper's VQC and, through the decoder, the dense
-(tinyllama-1.1b, olmo-1b, qwen3-0.6b, granite-34b), moe (deepseek-moe-16b,
+The port runs every arch of the JAX package's registry, for training and
+serving: the paper's VQC; through the decoder the dense (tinyllama-1.1b,
+olmo-1b, qwen3-0.6b, granite-34b), moe (deepseek-moe-16b,
 qwen3-moe-235b-a22b), ssm (mamba2-130m) and hybrid (hymba-1.5b)
-families, for training and serving. The encdec and vlm archs (ROADMAP
-queue 1, item 11c) raise ``NotImplementedError`` until they are ported.
+families; the encoder-decoder (whisper-tiny) and the VLM
+(llama-3.2-vision-90b), whose ``prefill_cross`` fills the cross K/V
+cache from the stubbed audio or image embeddings.
 """
 from __future__ import annotations
 
@@ -30,17 +32,7 @@ class ModelApi(NamedTuple):
 
 ARCH_IDS = ["vqc-satqfl", "hymba-1.5b", "tinyllama-1.1b", "olmo-1b",
             "qwen3-0.6b", "granite-34b", "mamba2-130m", "deepseek-moe-16b",
-            "qwen3-moe-235b-a22b"]
-
-#: the JAX package's arch ids the port has not ported yet, by ROADMAP item
-_NOT_PORTED = {"whisper-tiny": "11c", "llama-3.2-vision-90b": "11c"}
-_FAMILY_ITEM = {"encdec": "11c", "vlm": "11c"}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item {item}); the port "
-        f"runs " + ", ".join(repr(a) for a in ARCH_IDS))
+            "qwen3-moe-235b-a22b", "whisper-tiny", "llama-3.2-vision-90b"]
 
 
 def _decoder_api() -> ModelApi:
@@ -49,9 +41,29 @@ def _decoder_api() -> ModelApi:
                     prefill=M.prefill)
 
 
+def _encdec_api() -> ModelApi:
+    from repro_torch.models import encdec as M
+    return ModelApi(M.init, M.forward, M.loss, M.init_cache, M.decode_step,
+                    M.prefill_cross, prefill=M.prefill)
+
+
+def _vlm_api() -> ModelApi:
+    from repro_torch.models import vlm as M
+    return ModelApi(M.init, M.forward, M.loss, M.init_cache, M.decode_step,
+                    M.prefill_cross, prefill=M.prefill)
+
+
+_FAMILY_API = {
+    "dense": _decoder_api,
+    "moe": _decoder_api,
+    "ssm": _decoder_api,
+    "hybrid": _decoder_api,
+    "encdec": _encdec_api,
+    "vlm": _vlm_api,
+}
+
+
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id in _NOT_PORTED:
-        raise _not_ported(repr(arch_id), _NOT_PORTED[arch_id])
     if arch_id not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch_id!r}")
     mod = importlib.import_module(
@@ -66,11 +78,9 @@ def get_model(cfg_or_id) -> ModelApi:
     if family == "vqc":
         from repro_torch.quantum.vqc import vqc_api
         return vqc_api()
-    if family in ("dense", "moe", "ssm", "hybrid"):
-        return _decoder_api()
-    if family in _FAMILY_ITEM:
-        raise _not_ported(f"family {family!r}", _FAMILY_ITEM[family])
-    raise ValueError(f"unknown family {family!r}")
+    if family not in _FAMILY_API:
+        raise ValueError(f"unknown family {family!r}")
+    return _FAMILY_API[family]()
 
 
 def list_archs() -> list[str]:

@@ -54,6 +54,12 @@ def tree_unflatten(like, leaves: list):
     return out
 
 
+def tree_stack(trees: list):
+    """Trees of one structure -> one tree, each leaf the stack of theirs
+    along a new leading axis (a layer axis)."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
 def tree_size(tree) -> int:
     """Total number of scalar elements."""
     return sum(x.numel() for x in tree_leaves(tree))

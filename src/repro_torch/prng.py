@@ -120,6 +120,22 @@ def uniform(key: torch.Tensor, shape: tuple, minval=0.0,
     return torch.maximum(lo, fma)
 
 
+def gumbel(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``jax.random.gumbel`` in float32, its default ("low") mode:
+    −log(−log(u)), u from ``uniform`` on [tiny, 1)."""
+    u = uniform(key, shape, float(torch.finfo(torch.float32).tiny), 1.0)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis: the
+    argmax of the logits plus ``gumbel`` noise, as int64. For float32
+    logits the noise is JAX's; for bfloat16 logits JAX draws it in
+    bfloat16, the port in float32."""
+    return torch.argmax(logits.to(torch.float32)
+                        + gumbel(key, tuple(logits.shape)), dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # normal: XLA's float32 erf_inv over XLA's CPU log1p and log
 # ---------------------------------------------------------------------------

@@ -251,15 +251,13 @@ def sample_measure(key: torch.Tensor, state: torch.Tensor,
                    shots: int) -> torch.Tensor:
     """``shots`` computational-basis outcomes, (..., shots) int32, drawn as
     ``jax.random.categorical(key, logp, shape=(..., shots))`` draws them:
-    the argmax over the basis of log(max(p, 1e-30)) plus Gumbel noise
-    −log(−log(u)), u from ``prng.uniform`` on [tiny, 1) over (...,
-    shots, 2^n). The log-probabilities broadcast right-aligned against
-    that noise, as in JAX, so a batch of states must broadcast against
-    (shots,)."""
+    the argmax over the basis of log(max(p, 1e-30)) plus Gumbel noise,
+    ``prng.gumbel`` over (..., shots, 2^n). The log-probabilities
+    broadcast right-aligned against that noise, as in JAX, so a batch of
+    states must broadcast against (shots,)."""
     logp = torch.log(torch.clamp(probs(state), min=1e-30))
     shape = tuple(logp.shape[:-1]) + (shots, logp.shape[-1])
-    u = prng.uniform(key, shape, float(torch.finfo(torch.float32).tiny), 1.0)
-    return torch.argmax(-torch.log(-torch.log(u)) + logp,
+    return torch.argmax(prng.gumbel(key, shape) + logp,
                         dim=-1).to(torch.int32)
 
 

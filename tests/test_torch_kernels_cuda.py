@@ -1319,3 +1319,189 @@ def test_moe_prefill_card_matches_cpu(arch, monkeypatch):
                         cache_len=12)
         assert (swa_ops.LAUNCHES, ssd_ops.LAUNCHES) == (0, 0)
         assert toks.shape == (2, 12)
+
+
+# --------------------------------------------------------------------------
+# the encoder-decoder, the VLM and the int8 KV cache
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (16, 448, 6, 6, 64),          # whisper-tiny's decoder prefill
+    (4, 2048, 64, 8, 128),        # llama-3.2-vision-90b's self layers
+])
+def test_swa_kernel_matches_plain_at_encdec_vlm_shapes(B, S, H, KV, hd,
+                                                       dtype):
+    """Full causal attention at the shapes the encoder-decoder and the
+    VLM give #6: the kernel == the plain version (f32 ≤ 2e-5; bf16 within
+    one bf16 step of each element), one launch counted."""
+    _need_cuda()
+    q, k, v = _swa_inputs(B, S, H, KV, hd, dtype, seed=S + H)
+    before = swa_ops.LAUNCHES
+    got = swa_ops.swa_attention(q, k, v, 0)
+    assert swa_ops.LAUNCHES == before + 1
+    want = swa_ops.swa_attention_plain(q, k, v, 0)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 2e-5
+    else:
+        assert bf16_steps(got, want) <= 1.0
+
+
+def _open_gates(params, value: float):
+    """The VLM's parameters with its tanh gates at ``value`` (0 at init
+    switches every cross block off); other models' as they are."""
+    if "groups" not in params:
+        return params
+    cross = dict(params["groups"]["cross"])
+    for g in ("gate_attn", "gate_ffn"):
+        cross[g] = torch.full_like(cross[g], value)
+    return dict(params, groups=dict(params["groups"], cross=cross))
+
+
+def _nonzero_biases(params, rng):
+    """whisper's attention and MLP biases and LayerNorm shifts (``bq``,
+    ``bv``, ``bo``, ``bi``, ``b``) at N(0, 0.1) and LayerNorm scales
+    (``s``) at 1 + N(0, 0.1), from numpy on the params' device (a fresh
+    model has them 0 and 1, which hides a bias that is dropped or
+    misplaced); other models' as they are."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out[k] = _nonzero_biases(v, rng)
+        elif k in ("bq", "bv", "bo", "bi", "b", "s"):
+            d = 0.1 * rng.standard_normal(tuple(v.shape))
+            out[k] = torch.tensor(d + (1.0 if k == "s" else 0.0),
+                                  dtype=v.dtype, device=v.device)
+        else:
+            out[k] = v
+    return out
+
+
+def _causal_layers(cfg) -> int:
+    if cfg.family == "encdec":
+        return cfg.n_layers
+    return cfg.n_layers // cfg.cross_every * (cfg.cross_every - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-tiny", "llama-3.2-vision-90b"])
+def test_encdec_vlm_train_step_card_matches_cpu(arch):
+    """One sgd step at lr 1 of the smoke model (VLM gates at 0.5,
+    whisper's biases and LayerNorm leaves nonzero) in float32 with the
+    launcher's extras, on the card and on the CPU from
+    the same key and batch: loss and every parameter ≤ 1e-4; the step
+    launches #6 twice per causal self-attention layer and #7 never."""
+    _need_cuda()
+    from repro_torch import prng
+    from repro_torch.data.tokens import lm_batches, synthetic_corpus
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import lm_extras
+    from repro_torch.models import get_config, get_model, smoke_variant
+    from repro_torch.nn.optim import sgd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_variant(get_config(arch))
+    api = get_model(cfg)
+    corpus = synthetic_corpus(20_000, cfg.vocab_size, device="cpu")
+    batch = dict(next(lm_batches(corpus, 2, 64, 1, seed=3)),
+                 **lm_extras(cfg, 2, "cpu"))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = _nonzero_biases(_open_gates(
+            api.init(cfg, prng.PRNGKey(0, dev)), 0.5),
+            np.random.default_rng(1))
+        opt = sgd(1.0)
+        swa_ops.LAUNCHES = ssd_ops.LAUNCHES = 0
+        out[dev] = make_train_step(cfg, api, opt)(
+            params, opt.init(params),
+            {k: v.to(dev) for k, v in batch.items()}, 0)
+        launches = (swa_ops.LAUNCHES, ssd_ops.LAUNCHES)
+    assert launches == (2 * _causal_layers(cfg), 0)
+    (p_c, _, l_c), (p_g, _, l_g) = out["cpu"], out["cuda"]
+    assert abs(float(l_g) - float(l_c)) <= 1e-4 * abs(float(l_c))
+    for a, b in zip(tree_leaves(p_g), tree_leaves(p_c)):
+        assert (a.cpu() - b).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-tiny", "llama-3.2-vision-90b"])
+def test_encdec_vlm_prefill_card_matches_cpu(arch):
+    """The smoke model's prefill of 2 x 256 tokens (VLM gates at 0.5,
+    whisper's biases and LayerNorm leaves nonzero) in float32, TF32 off,
+    on the card (#6) and the CPU (its plain version) from the same key
+    and embeddings: next-token logits ≤ 1e-4 rel; the
+    prefill launches #6 once per causal layer, ``generate`` through
+    ``prefill_cross`` none."""
+    _need_cuda()
+    from repro_torch import prng
+    from repro_torch.launch.serve import generate, launcher_extras
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import get_config, get_model, smoke_variant
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_variant(get_config(arch))
+    api = get_model(cfg)
+    key = prng.PRNGKey(3, "cpu")
+    batch = dict(tokens=prng.randint(key, (2, 256), 0, cfg.vocab_size),
+                 **launcher_extras(cfg, key, 2))
+    logits = {}
+    with torch.inference_mode():
+        for dev in ("cpu", "cuda"):
+            params = _nonzero_biases(_open_gates(
+                api.init(cfg, prng.PRNGKey(0, dev)), 0.5),
+                np.random.default_rng(1))
+            swa_ops.LAUNCHES = ssd_ops.LAUNCHES = 0
+            logits[dev] = make_prefill_step(cfg, api)(
+                params, {k: v.to(dev) for k, v in batch.items()}
+            )[:, :cfg.vocab_size]
+            launches = (swa_ops.LAUNCHES, ssd_ops.LAUNCHES)
+        assert launches == (_causal_layers(cfg), 0)
+        want = logits["cpu"]
+        rel = ((logits["cuda"].cpu() - want).abs().max()
+               / want.abs().max()).item()
+        assert rel <= 1e-4
+        swa_ops.LAUNCHES = ssd_ops.LAUNCHES = 0
+        extras = {k: v.cuda() for k, v in batch.items() if k != "tokens"}
+        toks = generate(cfg, api, params, batch["tokens"][:, :8].cuda(), 4,
+                        cache_len=12, extras=extras)
+        assert (swa_ops.LAUNCHES, ssd_ops.LAUNCHES) == (0, 0)
+        assert toks.shape == (2, 12)
+
+
+@pytest.mark.cuda
+def test_int8_attn_decode_card_matches_cpu():
+    """``attn_decode`` on the int8 cache, 12 steps into 8 ring slots
+    under W=8, on the card and the CPU: inputs and weights on a dyadic
+    grid (q, k, v exact in any summation order), so every int8 value,
+    float16 scale and position written is equal, the outputs ≤ 1e-5."""
+    _need_cuda()
+    from repro_torch.models import blocks, get_config, smoke_variant
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_variant(get_config("tinyllama-1.1b")).replace(
+        kv_cache_dtype="int8")
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rng = np.random.default_rng(0)
+    dy = lambda shape, denom: torch.tensor(
+        (rng.integers(-4, 5, shape) / denom).astype(np.float32))
+    p = {"wq": dy((d, H * hd), 64), "wk": dy((d, KV * hd), 64),
+         "wv": dy((d, KV * hd), 64), "wo": dy((H * hd, d), 64)}
+    xs = [dy((2, 1, d), 8) for _ in range(12)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        cache = blocks.attn_cache_init(cfg, None, 2, 8, torch.float32, dev)
+        ys = []
+        for t, x in enumerate(xs):
+            y, cache = blocks.attn_decode(
+                pd, cfg, x.to(dev), torch.full((2,), t, dtype=torch.int32,
+                                               device=dev),
+                cache, window=8, use_rope=False)
+            ys.append(y.cpu())
+        out[dev] = (torch.stack(ys), {k: v.cpu() for k, v in cache.items()})
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() <= 1e-5
+    for k, v in out["cpu"][1].items():
+        assert torch.equal(out["cuda"][1][k], v), k

@@ -203,10 +203,20 @@ def test_data_and_partitions_are_bit_equal():
 
 
 def test_registry_serves_only_the_vqc():
+    """The VQC takes the shift rule; the encdec and vlm families resolve
+    to their own models, with a cross-cache prefill and no shift rule."""
     assert get_config("vqc-satqfl") == CFG_T
-    # the encdec and vlm families wait for ROADMAP item 11c
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        get_config("whisper-tiny")
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        get_model(CFG_T.replace(family="encdec"))
     assert get_model(CFG_T).shift_grad is tvqc.parameter_shift_grad
+    from repro_torch.models import encdec, vlm
+    for arch, family, mod in (("whisper-tiny", "encdec", encdec),
+                              ("llama-3.2-vision-90b", "vlm", vlm)):
+        cfg = get_config(arch)
+        # the JAX package's config, field for field
+        assert vars(cfg) == vars(jax_get_config(arch))
+        assert cfg.family == family and cfg.name == arch
+        for api in (get_model(arch), get_model(cfg)):
+            assert api.init is mod.init and api.prefill is mod.prefill
+            assert api.prefill_cross is mod.prefill_cross
+            assert api.shift_grad is None
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("no-such-arch")
