@@ -238,7 +238,28 @@ all at once) and then:
    the smoke VLM, CPU against card. Last, the int8 KV cache on
    tinyllama-1.1b at full width: 4 x (16 + 32) tokens decoded on the int8
    and the bf16 cache, logits rel < 0.05, top-1 agreement and the
-   caches' bytes printed.
+   caches' bytes printed;
+17. runs ROADMAP item 12b's paths: (a) the four examples
+   (``repro_torch.examples``) on the card at the JAX scripts' defaults
+   (satqfl_statlog: 50 satellites, 6 rounds, 8 local steps, 6 qubits over
+   the four frameworks), each example's launches read around it (#1 and
+   the layer backward in every example that trains, the seeded OTP rows
+   under qkd, secure_exchange's given-pad stream and rows entries), every
+   val loss finite and below 10, secure_exchange's decryption exact and
+   its one-bit tamper caught by the kernel's tag; (b) the (1, 1) host
+   mesh on the card (a world-1 NCCL group from a file store): qwen3-0.6b
+   at full width in bf16, DTensor parameters placed by ``param_specs``
+   under ``seq_shard``, one ``make_prefill_step`` over 4 x 2048 tokens
+   and one adamw ``make_train_step``, and mamba2-130m's prefill, each
+   bit for bit its ``ctx=None`` run with the same #6/#7 launches; the
+   analytic per-chip memory (``launch.analysis``) at one chip beside
+   each of these steps' own peak (its inputs' bytes plus the most it
+   allocated above what was held when it started) and phase 13's hymba
+   and phase 15's deepseek prefill peaks; the card's ``total_memory``;
+   (c) the dry-run (``python -m repro_torch.launch.dryrun``, a fake
+   256-rank group, meta shards, no GPU) of whisper-tiny × decode_32k,
+   mamba2-130m × long_500k and deepseek-moe-16b × train_4k (expert
+   parallelism) in three subprocesses, one roofline row each.
 
 It prints one ``{"kernels": [...]}`` line (the layer backward as
 ``statevec_gate_layer_bwd`` beside the seven ported TPU kernels; #4 and #5
@@ -248,8 +269,9 @@ line, and as its last
 line ``{"ok": true, "device": {...}}``. Each kernel's ``launches_by_path``
 covers the trainer paths, the in-graph paths (``dist_*``), serving, the
 LM training runs (``lm_*``), the twin (``twin_*``), the MoE serving
-paths (``serve_moe_*``) and phase 16's (``serve_encdec_*``,
-``serve_vlm_*``, ``lm_whisper-tiny``, ``lm_vlm``, ``serve_int8_decode``);
+paths (``serve_moe_*``), phase 16's (``serve_encdec_*``,
+``serve_vlm_*``, ``lm_whisper-tiny``, ``lm_vlm``, ``serve_int8_decode``)
+and phase 17's (``example_*``, ``mesh_*``);
 #6's entry carries the MoE readings (``moe_*``) and phase 16's
 (``encdec_vlm_*``).
 Without a CUDA device, or outside a
@@ -3426,6 +3448,268 @@ def phase_encdec_vlm(torch, kops, blocks, swa_ops):
     return launches, report
 
 
+
+# ---------------------------------------------------------------------------
+# phase 17: the examples, the host mesh and the dry-run (ROADMAP item 12b)
+# ---------------------------------------------------------------------------
+
+#: the examples at the JAX scripts' defaults: name -> (argv, whether it
+#: trains, the other kernels whose launches must be nonzero)
+EXAMPLES = {
+    "quickstart": ([], True, ("otp_xor_mac_edges_seeded",)),
+    "secure_exchange": ([], False, ("otp_xor_mac", "otp_xor_mac_edges")),
+    "async_dropout": ([], True, ("otp_xor_mac_edges_seeded",)),
+    "satqfl_statlog": ([], True, ()),
+}
+MESH_BATCH = (4, 2048)
+DRYRUN_COMBOS = (("whisper-tiny", "decode_32k"), ("mamba2-130m", "long_500k"),
+                 ("deepseek-moe-16b", "train_4k"))
+
+
+def _example_losses(name: str, out: dict) -> list:
+    """Every val loss an example reports."""
+    if name == "satqfl_statlog":
+        return [fw["server_val_loss_final"]
+                for fw in out["table"]["frameworks"].values()]
+    if name == "secure_exchange":
+        return []
+    return [m.server_val_loss for m in out["metrics"].values()]
+
+
+def _phase_examples(torch, kops) -> tuple:
+    import importlib
+    launches, report = {}, {}
+    for name, (argv, trains, nonzero) in EXAMPLES.items():
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        torch.cuda.synchronize()
+        _reset(kops)
+        t0 = time.perf_counter()
+        out = mod.main(argv)                  # on the card by default
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = launches[f"example_{name}"] = _counts(kops)
+        need = (("statevec_gate_layer", "statevec_gate_layer_bwd")
+                if trains else ()) + nonzero
+        zero = [k for k in need if not got[k]]
+        losses = _example_losses(name, out)
+        bad = [x for x in losses if not (math.isfinite(x) and x < 10)]
+        if zero or bad:
+            raise PhaseError(f"example {name}: launches {got}, none of "
+                             f"{zero}; val losses {losses}")
+        if name == "secure_exchange" and not (
+                out["decrypt_exact"] and out["tamper_detected"]
+                and out["edge_kernel_matches"]):
+            raise PhaseError(f"secure_exchange checks failed: "
+                             f"{ {k: v for k, v in out.items() if k != 'lines'} }")
+        report[name] = {"run_s": dt, "val_losses": losses,
+                        "launches": {k: v for k, v in got.items() if v}}
+        print(f"example {name}: {dt:.1f} s, final lines "
+              f"{json.dumps(out['lines'][-6:])}")
+        print(f"example {name} launches: "
+              f"{json.dumps(report[name]['launches'])}")
+    return launches, report
+
+
+def _bits_equal(torch, a, b) -> bool:
+    from repro_torch.nn.pytree import tree_leaves
+    loc = lambda t: t.to_local() if hasattr(t, "to_local") else t
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(loc(x), loc(y)) for x, y in zip(la, lb))
+
+
+def _host_shape(mode: str):
+    from repro_torch.configs.shapes import InputShape
+    B, S = MESH_BATCH
+    return InputShape(f"host_{mode}", S, B, mode)
+
+
+def _analytic_gb(cfg, api, mode: str) -> float:
+    from repro_torch.launch.analysis import analytic_memory_per_chip
+    return analytic_memory_per_chip(cfg, api, _host_shape(mode), 1, 1, 1,
+                                    False)["total"] / 1e9
+
+
+def _host_copy(tree):
+    """Every tensor of ``tree`` (DTensors as their local shard) on the
+    host, so a kept result does not count in the next run's peak."""
+    from repro_torch.nn.pytree import tree_map
+    return tree_map(lambda t: (t.to_local() if hasattr(t, "to_local")
+                               else t).detach().cpu(), tree)
+
+
+def _tree_bytes(tree) -> int:
+    """The bytes of the distinct storages under ``tree``'s tensors
+    (DTensors by their local shard)."""
+    from repro_torch.nn.pytree import tree_leaves
+    seen = {}
+    for t in tree_leaves(tree):
+        t = t.to_local() if hasattr(t, "to_local") else t
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _mesh_pair(torch, kops, name, plain, meshed):
+    """``plain`` then ``meshed``, each (a step, the trees of its inputs),
+    with the counts set to 0 just before and read just after and its
+    result then copied to the host: the two results bit for bit equal and
+    the launches equal. A step's peak is its own: its inputs' bytes plus
+    the most the step allocated above what was held when it started (the
+    harness holds both steps' inputs at once). Returns (launches of the
+    meshed run, the plain and the meshed peak GB, the GB held besides the
+    meshed step's inputs)."""
+    runs = []
+    for fn, inputs in (plain, meshed):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(kops)
+        out = fn()
+        torch.cuda.synchronize()
+        own = _tree_bytes(inputs)
+        runs.append((_host_copy(out), _counts(kops),
+                     (own + torch.cuda.max_memory_allocated() - base) / 1e9,
+                     (base - own) / 1e9))
+        del out
+    (a, ca, plain_peak, _), (b, cb, peak, held) = runs
+    if ca != cb or not _bits_equal(torch, a, b):
+        raise PhaseError(f"mesh {name}: launches {cb} vs {ca} without the "
+                         f"mesh; bit-equal {_bits_equal(torch, a, b)}")
+    return cb, (plain_peak, peak, held)
+
+
+def _host_mesh_arch(torch, kops, ctx, mesh, arch, train, launches, report):
+    """One arch's plain and meshed prefill (and train step) on the host
+    mesh, held bit for bit (``_mesh_pair``)."""
+    from repro_torch import prng
+    from repro_torch.launch.steps import (_opt_for, _opt_specs,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.models import get_config, get_model
+    from repro_torch.sharding.specs import (batch_specs, distribute_tree,
+                                            param_specs)
+    B, S = MESH_BATCH
+    cfg = get_config(arch)
+    api = get_model(cfg)
+    key = prng.PRNGKey(0, device="cuda")
+    params = api.init(cfg, key)
+    toks = prng.randint(prng.fold_in(key, 1), (B, S), 0, cfg.vocab_size)
+    batch = {"tokens": toks}
+    dparams = distribute_tree(params, param_specs(cfg, params, ctx), mesh)
+    dbatch = distribute_tree(batch, batch_specs(cfg, batch, ctx), mesh)
+    plain, meshed = make_prefill_step(cfg, api), make_prefill_step(
+        cfg, api, ctx)
+    # (no_grad, not inference_mode: a DTensor's layer slice sets a
+    # version counter, which an inference tensor refuses)
+    with torch.no_grad():
+        plain(params, batch)                               # warm
+        got, (plain_peak, peak, held) = _mesh_pair(
+            torch, kops, f"{arch} prefill",
+            (lambda: plain(params, batch), (params, batch)),
+            (lambda: meshed(dparams, dbatch), (dparams, dbatch)))
+    launches[f"mesh_{arch}_prefill"] = got
+    report[f"{arch}_prefill"] = {
+        "peak_gb": peak, "plain_peak_gb": plain_peak, "held_gb": held,
+        "analytic_gb": _analytic_gb(cfg, api, "prefill"),
+        "launches": {k: v for k, v in got.items() if v}}
+    if train:
+        opt = _opt_for(cfg, "adamw")
+        slots = opt.init(params)
+        tbatch = dict(batch, labels=torch.roll(toks, -1, 1))
+        dslots = distribute_tree(
+            slots, _opt_specs(slots, param_specs(cfg, params, ctx)), mesh)
+        dtb = distribute_tree(tbatch, batch_specs(cfg, tbatch, ctx), mesh)
+        pstep, mstep = make_train_step(cfg, api, opt), make_train_step(
+            cfg, api, opt, ctx)
+        got, (plain_peak, peak, held) = _mesh_pair(
+            torch, kops, f"{arch} train step",
+            (lambda: pstep(params, slots, tbatch, 0),
+             (params, slots, tbatch)),
+            (lambda: mstep(dparams, dslots, dtb, 0), (dparams, dslots, dtb)))
+        launches[f"mesh_{arch}_train"] = got
+        report[f"{arch}_train"] = {
+            "peak_gb": peak, "plain_peak_gb": plain_peak, "held_gb": held,
+            "analytic_gb": _analytic_gb(cfg, api, "train"),
+            "launches": {k: v for k, v in got.items() if v}}
+        del slots, dslots
+    del params, dparams
+    torch.cuda.empty_cache()
+
+
+def _phase_host_mesh(torch, kops, peaks: dict) -> tuple:
+    """(b): the (1, 1) card mesh, qwen3-0.6b's prefill and train step and
+    mamba2-130m's prefill each bit for bit its plain run; the analytic
+    memory beside the measured peaks (``peaks``: other phases'); the
+    card's total memory."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_config, get_model
+    from repro_torch.sharding.context import DistCtx
+    mesh = make_host_mesh()                   # world-1 NCCL, file store
+    ctx = DistCtx(mesh=mesh, data_axes=("data",), seq_shard=True)
+    launches, report = {}, {}
+    for arch, train in (("qwen3-0.6b", True), ("mamba2-130m", False)):
+        _host_mesh_arch(torch, kops, ctx, mesh, arch, train, launches,
+                        report)
+    for arch, measured in peaks.items():
+        cfg = get_config(arch)
+        report[f"{arch}_prefill"] = {
+            "peak_gb": measured,
+            "analytic_gb": _analytic_gb(cfg, get_model(cfg), "prefill")}
+    total = torch.cuda.get_device_properties(0).total_memory
+    from repro_torch.launch.dryrun import HBM_PER_CHIP
+    report["total_memory"] = total
+    report["total_memory_is_dryrun_hbm_per_chip"] = total == HBM_PER_CHIP
+    dist.destroy_process_group()
+    print("host mesh (1 x 1), bit-equal to ctx=None: " + json.dumps(report))
+    for k, r in report.items():
+        if isinstance(r, dict):
+            print(f"  memory {k}: analytic/chip {r['analytic_gb']:.2f} GB, "
+                  f"measured peak {r['peak_gb']:.2f} GB")
+    print(f"  card total_memory {total} bytes (dryrun HBM_PER_CHIP "
+          f"{HBM_PER_CHIP})")
+    return launches, report
+
+
+def _phase_dryrun() -> dict:
+    """The dry-run's CLI in subprocesses (started together): exit 0 each,
+    one roofline row each."""
+    procs = {}
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    for arch, shape in DRYRUN_COMBOS:
+        procs[arch, shape] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single"], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    rows = {}
+    for key, p in procs.items():
+        try:
+            out = p.communicate(timeout=300)[0]
+        finally:
+            if p.poll() is None:
+                p.kill()
+        row = [line.strip() for line in out.splitlines() if " C=" in line]
+        if p.returncode != 0 or not row:
+            raise PhaseError(f"dryrun {key}: exit {p.returncode}: "
+                             f"{out[-2000:]}")
+        rows["x".join(key)] = row[0]
+        print(f"dryrun: {row[0]}")
+    return rows
+
+
+def phase_mesh_examples(torch, kops, peaks: dict) -> tuple:
+    """Phase 17: (a) the four examples on the card, (b) the host mesh on
+    the card, (c) the dry-run in subprocesses. Returns (launches by path,
+    report)."""
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    print(f"phase 17: torch {torch.__version__}; the dry-run's fake "
+          f"process group imports")
+    launches, report = _phase_examples(torch, kops)
+    mesh_launches, report["host_mesh"] = _phase_host_mesh(torch, kops, peaks)
+    launches.update(mesh_launches)
+    report["dryrun"] = _phase_dryrun()
+    return launches, report
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3504,6 +3788,15 @@ def main() -> int:
     ev_launches, ev_report = phase_encdec_vlm(torch, kops, blocks, swa_ops)
     launches.update(ev_launches)
     print(f"phase 16 (encdec, VLM, int8 KV): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    peaks = {"hymba-1.5b": serve_report.get("prefill_peak_gb"),
+             "deepseek-moe-16b": moe_report.get("deepseek-moe-16b", {}).get(
+                 "prefill_peak_gb")}
+    mesh_launches, _ = phase_mesh_examples(
+        torch, kops, {k: v for k, v in peaks.items() if v is not None})
+    launches.update(mesh_launches)
+    print(f"phase 17 (examples, host mesh, dry-run): "
+          f"{time.perf_counter() - t0:.1f} s")
 
     t = timings["ansatz"]
     entries = [{

@@ -23,5 +23,8 @@ a stacked satellite axis on the same kernels (``core.dist``, and
 ``hymba-1.5b``, the hybrid attention ∥ Mamba-2 decoder of the LLM client
 zoo (``launch.steps``, ``launch.serve``), its prefill's attention and SSD
 scan running as two more CUDA kernels (``kernels.swa_attention``,
-``kernels.ssd_scan``).
+``kernels.ssd_scan``). Under a device mesh (``sharding``,
+``launch.mesh``) the model steps run on DTensors, the MoE with expert
+parallelism; ``launch.dryrun`` traces every (arch × shape) step on a fake
+production mesh without allocating a parameter.
 """

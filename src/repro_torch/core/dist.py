@@ -29,8 +29,11 @@ Security (Algorithm 2) runs over the whole stacked tree at once:
 
 Local training is the port's ``core.localtrain`` program over all n_sat
 rows as one stage, so a round makes one training call (seq: one a hop).
-The JAX package's jit and mesh sharding have no counterpart here: the port
-runs on one card, and ``ctx`` is accepted and ignored. Seeds and MAC keys
+Under a mesh ``ctx`` otp_gather pins the ciphertext the aggregator
+receives to replicated (the JAX package's ``P(None, …)`` constraint: an
+all-gather of the satellite axis when its rows are DTensors sharded over
+the mesh); on plain tensors, and with ``ctx=None``, that is nothing.
+``fl_input_specs`` gives the round's inputs as meta tensors. Seeds and MAC keys
 are u32 values held in int64 tensors masked to 32 bits, the port's
 convention; they reach the kernel as int32 bit storage. On CPU tensors the
 kernel's wrapper runs its plain version, bit for bit the same.
@@ -49,6 +52,8 @@ from repro_torch.kernels.otp_xor.ref import as_storage
 from repro_torch.nn.optim import Optimizer
 from repro_torch.nn.pytree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.security.mac import poly_mac_rows
+from repro_torch.sharding.context import has_mesh
+from repro_torch.sharding.specs import P, constrain
 from repro_torch.security.otp import (pad_layout, tree_to_u32_rows,
                                       u32_to_tree_rows)
 
@@ -102,6 +107,15 @@ def _gather_send(tree, round_seeds):
     and its MAC tag under the row's round seed: (ciphertext tree, tags)."""
     rk, sk = _mac_keys(round_seeds)
     return _otp_rows(tree, round_seeds, rk, sk)
+
+
+def _replicated(tree, ctx):
+    """Every leaf of ``tree`` constrained to replicated under ``ctx``'s
+    mesh (a DTensor leaf is gathered; a plain one is left as it is)."""
+    if not has_mesh(ctx):
+        return tree
+    return tree_map(lambda t: constrain(t, P(*([None] * t.dim())), ctx),
+                    tree)
 
 
 def _gather_receive(ct, round_seeds):
@@ -303,6 +317,7 @@ def make_fl_round(model_cfg, api, fl: SatQFLConfig, optimizer: Optimizer,
                     # and its sender's tag, verifies, then decrypts
                     s = _round_seeds(seeds, r, _OTP_MIX)
                     ct, tags = _gather_send(p, s)
+                    ct = _replicated(ct, ctx)
                     moved, tags_rx = _gather_receive(ct, s)
                     mac_ok = torch.all(tags == tags_rx)
                 else:
@@ -371,3 +386,22 @@ def fl_init_state(model_cfg, api, optimizer: Optimizer, n_sats: int,
                                         device=key.device),
                    round_idx=torch.zeros((), dtype=torch.int32,
                                          device=key.device))
+
+
+def fl_input_specs(model_cfg, api, fl: SatQFLConfig, n_sats: int,
+                   feature_shape: tuple, n_classes: int, seq_hops: int = 1):
+    """Meta-tensor stand-ins of the round's inputs (classifier
+    workloads); the u32 seeds are int64, the port's convention."""
+    steps = fl.local_steps * (seq_hops if fl.mode == "seq" else 1)
+    bs = (n_sats, steps, fl.batch_size)
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype,
+                                            device=torch.device("meta"))
+    return {
+        "batches": {
+            "features": meta(bs + tuple(feature_shape), torch.float32),
+            "labels": meta(bs, torch.int32),
+        },
+        "part_mask": meta((n_sats,), torch.float32),
+        "seeds": meta((n_sats,), torch.int64),
+        "weights": meta((n_sats,), torch.float32),
+    }

@@ -34,9 +34,10 @@
 // then takes the carry entering its chunk from its predecessors by a
 // decoupled look-back over a float32 scratch buffer: it publishes (S_c,
 // d_c) behind its flag at once, sums the decayed states of the chunks
-// before it back to the first one that has published its outgoing carry
-// (or to the initial state), and publishes its own outgoing carry (the
-// last chunk writes the final state instead). Blocks take their (batch,
+// before it back to the last window boundary's outgoing carry (or to the
+// initial state), in a fixed order so calls repeat their bits, and
+// publishes its own outgoing carry (the last chunk writes the final state
+// instead). Blocks take their (batch,
 // head, chunk) from an atomic ticket in start order, chunks innermost, so
 // a block only ever waits on blocks that have started: no order of block
 // scheduling can deadlock. y, which needs the carry, follows.
@@ -145,16 +146,19 @@ __device__ __forceinline__ void chunk_cumsum(const float* dtv, float a, int Q,
 // its chunk as an inclusive prefix (flag 2) once it has that. The carry
 // entering chunk c is
 //   carry_{c-1} = sum_{j<c} (d_{j+1} ... d_{c-1}) S_j  (+ the initial state)
-// read back from c - 1 over aggregates until the first inclusive prefix
-// (chunk -1 stands for the initial state). Warp 0 finds one window of up
-// to 32 predecessors at a time, each lane polling one flag: the window
-// ends at the first inclusive prefix, and is waited on while a chunk before
-// it has published nothing.
+// summed in one fixed order whatever the blocks' timing, so that every
+// call gives the same bits: the inclusive prefix of chunk
+// b = kWindow * floor((c - 1) / kWindow) (the initial state for chunk 0),
+// then the aggregates of the chunks between, c - 1 down to b + 1, at most
+// kWindow - 1 of them. Only chunks 0, kWindow, 2 kWindow, ... are read as
+// inclusive prefixes, so the chain of carries waits one block per kWindow
+// chunks. Warp 0 polls the window's flags, one lane a chunk, until the
+// aggregates and the prefix are all published.
+constexpr int kWindow = 32;
 struct LookBack {
-  int n, found, j0;     // terms in this window; found the inclusive; next
-  float mul;            // decay product of the windows already read
-  const float* src[33]; // aggregates, then the inclusive prefix (P x N)
-  float coef[33];
+  int n, j0;            // terms in the window; the chunk before this one
+  const float* src[kWindow]; // aggregates, then the inclusive prefix
+  float coef[kWindow];
 };
 
 __device__ __forceinline__ void find_window(const int* flags,
@@ -164,18 +168,19 @@ __device__ __forceinline__ void find_window(const int* flags,
                                             const float* init, long long base,
                                             long long PN, LookBack* t) {
   const int lane = threadIdx.x, jj = t->j0 - lane;
-  int first2;
+  // lanes below na read aggregates, lane na the inclusive prefix (or, at
+  // jj = -1, the initial state)
+  const int na = t->j0 >= 0 ? t->j0 % kWindow : 0;
+  const unsigned below = (1u << na) - 1u;
   while (true) {
     const int f = jj >= 0 ? ld_acquire(flags + base + jj) : 2;
     const unsigned m0 = __ballot_sync(0xffffffffu, f == 0);
     const unsigned m2 = __ballot_sync(0xffffffffu, f == 2);
-    first2 = m2 ? __ffs(m2) - 1 : 32;
-    const int first0 = m0 ? __ffs(m0) - 1 : 32;
-    if (first0 >= first2) break;   // aggregates up to an inclusive (or 32)
+    if (!(m0 & below) && (m2 >> na & 1u)) break;
     __nanosleep(20);
   }
-  // lanes below first2 hold aggregates; the decay products weight them
-  const float d = lane < first2 ? __ldcg(decays + base + jj) : 1.f;
+  // the decay products d_{j+1} ... d_{c-1} weight the terms
+  const float d = lane < na ? __ldcg(decays + base + jj) : 1.f;
   float inc = d;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
@@ -184,20 +189,14 @@ __device__ __forceinline__ void find_window(const int* flags,
   }
   float exc = __shfl_up_sync(0xffffffffu, inc, 1);
   if (lane == 0) exc = 1.f;
-  const float all = __shfl_sync(0xffffffffu, inc, 31);
-  if (lane <= first2) {   // aggregates, then the inclusive prefix
+  if (lane <= na) {
     t->src[lane] = jj < 0 ? init
-                          : (lane < first2 ? aggs : incls) + (base + jj) * PN;
-    t->coef[lane] = t->mul * exc;
+                          : (lane < na ? aggs : incls) + (base + jj) * PN;
+    t->coef[lane] = exc;
   }
   __syncwarp();
-  if (lane == 0) {
-    t->found = first2 < 32;
-    // a zero initial state adds nothing
-    t->n = first2 + (first2 < 32 && (t->j0 - first2 >= 0 || init));
-    t->mul *= all;
-    t->j0 -= 32;
-  }
+  // a zero initial state adds nothing
+  if (lane == 0) t->n = na + (t->j0 - na >= 0 || init != nullptr);
 }
 
 // The carry entering chunk c, then the carry leaving it (entering * decay
@@ -226,25 +225,19 @@ __device__ __forceinline__ void carry_in(
       gi[e] = i < total && p < P && n < N ? p * N + n : -1;
       a[e] = 0.f;
     }
-    if (threadIdx.x == 0) {
-      t->j0 = c - 1;
-      t->mul = 1.f;
-    }
-    while (true) {
-      __syncthreads();   // t is set, and the last window read by all
-      if (threadIdx.x < 32)
-        find_window(flags, decays, aggs, incls, init, base, PN, t);
-      __syncthreads();
-      const int nt = t->n;
+    if (threadIdx.x == 0) t->j0 = c - 1;
+    __syncthreads();   // t is set, and the last window read by all
+    if (threadIdx.x < 32)
+      find_window(flags, decays, aggs, incls, init, base, PN, t);
+    __syncthreads();
+    const int nt = t->n;
 #pragma unroll 4
-      for (int k = 0; k < nt; ++k) {
-        const float* src = t->src[k];
-        const float cf = t->coef[k];
+    for (int k = 0; k < nt; ++k) {
+      const float* src = t->src[k];
+      const float cf = t->coef[k];
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          if (gi[e] >= 0) a[e] += cf * __ldcg(src + gi[e]);
-      }
-      if (t->found) break;
+      for (int e = 0; e < 8; ++e)
+        if (gi[e] >= 0) a[e] += cf * __ldcg(src + gi[e]);
     }
 #pragma unroll
     for (int e = 0; e < 8; ++e) {

@@ -14,7 +14,8 @@ on a CPU tensor it runs the plain version, ``blocks.ssd_ref``. A CUDA
 tensor never falls back to the plain version: the kernel runs or the
 call raises. A given ``init_state`` is loaded by the kernel in place of
 the zero state of a prefill (the JAX package sends it through its
-reference instead).
+reference instead). The kernel sums each chunk's incoming carry in a
+fixed order, so calls on the same inputs give the same bits.
 
 The backward replays the plain version, ``blocks.ssd_ref``, under
 autograd, as the JAX package's ``_bwd`` replays its reference.
@@ -98,7 +99,8 @@ def _check(xh, dt, A, Bv, Cv, init_state, chunk: int):
                 f"most {MAX_CHUNK}, got {xh.dtype}/{Bv.dtype}/{Cv.dtype} "
                 f"at xh {tuple(xh.shape)}, Bv {tuple(Bv.shape)}, "
                 f"chunk {chunk}")
-    elif xh.device.type != "cpu":
+    elif xh.device.type not in ("cpu", "meta"):
+        # meta: the dry-run's shape-only trace of the plain version
         raise ValueError(f"no ssd_scan for device {xh.device}")
 
 

@@ -104,7 +104,8 @@ def _check(q, k, v):
                 f"the swa_attention kernel takes float32 or bfloat16 with "
                 f"head dim in {HEAD_DIMS}, got {q.dtype} at "
                 f"{tuple(q.shape)}")
-    elif q.device.type != "cpu":
+    elif q.device.type not in ("cpu", "meta"):
+        # meta: the dry-run's shape-only trace of the plain version
         raise ValueError(f"no swa_attention for device {q.device}")
 
 

@@ -26,8 +26,16 @@ Ported here: attention with GQA, MQA, qk-norm, biases, self and cross
 int8 with float16 scales, SwiGLU FFN, the capacity-dispatched MoE FFN,
 Mamba-2. The MoE layer has no kernel in the JAX package either: routing,
 dispatch and combine are plain torch, the experts three batched matmuls.
-Not yet: expert parallelism over a device mesh (ROADMAP queue 1, item
-12b).
+
+Under a device mesh (DTensor activations) the kernels run on each rank's
+local shard in a ``local_map`` region (batch over the data axes, heads
+over "model" where they divide, the sequence whole), never on a DTensor;
+``seq_attn`` keeps the queries sequence-sharded through a plain softmax
+over the local query block; and the MoE runs expert parallelism:
+``_moe_a2a`` (tokens to their experts' ranks and back with two
+all-to-alls over "model") for many tokens, ``_moe_replicated_ep`` (each
+"model" rank its expert slice, then an all-reduce) for few, the
+counterparts of the JAX package's ``shard_map`` regions.
 """
 from __future__ import annotations
 
@@ -45,9 +53,45 @@ from repro_torch.nn.common import (
     apply_rope, layer_norm, rms_norm, rope_angles, softplus, swiglu,
 )
 from repro_torch.nn.init import normal_init, scaled_init, uniform_init
+from repro_torch.sharding.context import has_mesh, is_dtensor
+from repro_torch.sharding.specs import (P, constrain, local_placed,
+                                        local_region, whole_dim, whole_grad)
 
 NEG_INF = -1e30
 _F32 = torch.float32
+
+
+def embed_lookup(table, ids):
+    """``table[ids]``. On a DTensor table each rank looks its ids up in its
+    own rows: where the rows are split (over "model", vocab-parallel) an
+    id outside them reads a zero row and the partial rows add up across
+    those ranks; the ids keep their batch split."""
+    if not is_dtensor(table):
+        return table[ids]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = table.device_mesh
+    table = whole_dim(table, 1)
+    if not is_dtensor(ids):
+        ids = _replicated(ids, mesh)
+    rows = [p.is_shard(0) for p in table.placements]
+    ids = ids.redistribute(mesh, [Replicate() if r else p for r, p in
+                                  zip(rows, ids.placements)])
+    (n, _), (off, _) = compute_local_shape_and_global_offset(
+        table.shape, mesh, table.placements)
+    split = n != table.shape[0]
+
+    def local(t, i):
+        if not split:
+            return t[i]
+        hit = (i >= off) & (i < off + n)
+        return t[torch.where(hit, i - off, 0)] * hit[..., None].to(t.dtype)
+
+    out = tuple(Partial() if r else (Shard(p.dim) if p.is_shard() else p)
+                for r, p in zip(rows, ids.placements))
+    return local_placed(local, mesh, (table.placements, ids.placements),
+                        out)(table, ids)
 
 
 def _pre(L) -> tuple:
@@ -104,6 +148,21 @@ def attn_init(key, cfg: ArchConfig, L: int | None, dtype, bias: bool = False):
     return p
 
 
+def _split_heads(t, B: int, S: int, n: int, hd: int):
+    """(B, S, n·hd) -> (B, S, n, hd). A DTensor whose last dim is split
+    over a mesh dim the n heads do not divide is gathered on that dim
+    first (DTensor may shard a projection's columns wherever they divide,
+    heads or not)."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+        mesh, last = t.device_mesh, t.dim() - 1
+        pl = [Replicate() if p.is_shard(last) and n % mesh.size(md) else p
+              for md, p in enumerate(t.placements)]
+        if pl != list(t.placements):
+            t = t.redistribute(mesh, pl)
+    return t.reshape(B, S, n, hd)
+
+
 def _project_qkv(p, cfg: ArchConfig, xq, xkv, cos_q=None, sin_q=None,
                  cos_k=None, sin_k=None):
     """Project q from xq and k,v from xkv; apply qk-norm and rope."""
@@ -117,9 +176,9 @@ def _project_qkv(p, cfg: ArchConfig, xq, xkv, cos_q=None, sin_q=None,
     v = xkv @ p["wv"]
     if "bv" in p:
         v = v + p["bv"]
-    q = q.reshape(Bq, Sq, H, hd)
-    k = k.reshape(Bk, Sk, KV, hd)
-    v = v.reshape(Bk, Sk, KV, hd)
+    q = _split_heads(q, Bq, Sq, H, hd)
+    k = _split_heads(k, Bk, Sk, KV, hd)
+    v = _split_heads(v, Bk, Sk, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -135,6 +194,8 @@ def _sdpa_core(q, k, v, mask):
     or None -> (B,Sq,H,hd). Softmax statistics in fp32; the score and
     probability tensors stay in the activation dtype, as in the JAX
     package."""
+    if is_dtensor(q) and sum(p.is_shard(0) for p in q.placements) > 1:
+        return _sdpa_local(q, k, v, mask)
     hd = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
     if mask is not None:
@@ -146,10 +207,24 @@ def _sdpa_core(q, k, v, mask):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def _sdpa_local(q, k, v, mask):
+    """``_sdpa_core`` of DTensors on each rank's local batch and heads (the
+    keys whole): DTensor's einsum miscomputes the local shapes of a batch
+    split over two mesh axes (the multi-pod mesh's ("pod", "data"))."""
+    b, h = _mesh_specs(q.device_mesh, q.shape[0], (q.shape[2],))
+    if mask is not None and not is_dtensor(mask):
+        mask = _replicated(mask, q.device_mesh)
+    qs = P(b, None, h, None)
+    ms = None if mask is None else P(b, None, None, None)
+    return local_region(_sdpa_core, q.device_mesh, (qs, qs, qs, ms), qs)(
+        q, k, v, mask)
+
+
 def _out_proj(o, p):
-    """(B, S, H·hd) through ``wo``, plus ``bo`` where present."""
+    """(B, S, H·hd) through ``wo``, plus ``bo`` where present (its
+    gradient taken whole in S, ``whole_grad``)."""
     y = o @ p["wo"]
-    return y + p["bo"] if "bo" in p else y
+    return whole_grad(y + p["bo"] if "bo" in p else y)
 
 
 def _sdpa(q, k, v, mask, p):
@@ -184,6 +259,59 @@ def _attn_qchunked(q, k, v, positions, causal, window, chunk=QCHUNK):
     return torch.cat(outs, dim=1)
 
 
+def _mesh_specs(mesh, B: int, heads: tuple):
+    """(batch entry, heads entry) of a kernel's local region on ``mesh``:
+    the batch over the data axes where it divides them, the heads over
+    "model" where every count in ``heads`` divides it; else replicated."""
+    names = tuple(mesh.mesh_dim_names)
+    data = tuple(a for a in names if a != "model")
+    dsz = 1
+    for a in data:
+        dsz *= mesh.size(names.index(a))
+    ms = mesh.size(names.index("model")) if "model" in names else 1
+    b = (data if len(data) > 1 else data[0]) if data and B % dsz == 0 \
+        else None
+    h = "model" if ms > 1 and all(n % ms == 0 for n in heads) else None
+    return b, h
+
+
+def _swa_local(q, k, v, window: int):
+    """Kernel #6 on DTensors: each rank's local batch and heads, the
+    sequence whole."""
+    b, h = _mesh_specs(q.device_mesh, q.shape[0], (q.shape[2], k.shape[2]))
+    spec = P(b, None, h, None)
+    return local_region(lambda q, k, v: swa_attention(q, k, v, window),
+                        q.device_mesh, (spec, spec, spec), spec)(q, k, v)
+
+
+def _seq_attn_local(q, k, v, positions, causal: bool, window: int, ctx):
+    """``seq_attn``: the queries keep the residual's sequence sharding and
+    only K/V are gathered; each rank runs the plain softmax over its
+    query block against the whole K/V (kernel #6 takes whole sequences)."""
+    dp, m = ctx.data_spec_axes, ctx.model_axis
+
+    def local(q, k, v, pq, pk):
+        k = _repeat_kv(k, q.shape[2])
+        v = _repeat_kv(v, q.shape[2])
+        mask = torch.ones((q.shape[0], q.shape[1], k.shape[1]),
+                          dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= pk[:, None, :] <= pq[:, :, None]
+        if window > 0:
+            mask &= pk[:, None, :] > pq[:, :, None] - window
+        return _sdpa_core(q, k, v, mask[:, None])
+
+    if not is_dtensor(positions):      # a plain tensor reaches local_map whole
+        positions = _replicated(positions, ctx.mesh)
+    qs, kvs = P(dp, m, None, None), P(dp, None, None, None)
+    q = constrain(q, qs, ctx)
+    k = constrain(k, kvs, ctx)
+    v = constrain(v, kvs, ctx)
+    return local_region(local, ctx.mesh,
+                        (qs, kvs, kvs, P(dp, m), P(dp, None)), qs)(
+        q, k, v, positions, positions)
+
+
 def attn_apply(p, cfg: ArchConfig, x, positions, *, window: int = 0,
                causal: bool = True, use_rope: bool = True, ctx=None):
     """Full-sequence self-attention (training / prefill). Causal attention
@@ -191,14 +319,27 @@ def attn_apply(p, cfg: ArchConfig, x, positions, *, window: int = 0,
     positions must be ``arange(S)`` in every row, as the models pass them
     (they also give the rope angles). Non-causal attention (the whisper
     encoder) is the plain softmax, its mask the window's alone, in query
-    chunks past ``QCHUNK_THRESHOLD``. ``ctx`` is accepted and ignored."""
+    chunks past ``QCHUNK_THRESHOLD``.
+
+    ``ctx.seq_attn`` under a sequence-sharded mesh ctx, for GQA/MQA
+    (under MHA the K/V gather is full-size and the forced layout hurts):
+    queries stay sequence-sharded through the whole attention and only
+    K/V, a kv_heads/heads fraction of the bytes, are gathered."""
+    x = whole_dim(x)
     B, S, _ = x.shape
     cos = sin = None
     if use_rope:
         cos, sin = rope_angles(positions, cfg.hd, cfg.rope_theta)
     q, k, v = _project_qkv(p, cfg, x, x, cos, sin, cos, sin)
+    if (has_mesh(ctx) and ctx.seq_shard and ctx.seq_attn and S > 1
+            and S % ctx.model_size == 0
+            and 2 * cfg.n_kv_heads <= cfg.n_heads and is_dtensor(q)):
+        o = _seq_attn_local(q, k, v, positions, causal, window, ctx)
+        return _out_proj(o.reshape(B, S, -1), p)
     if causal:
-        return _out_proj(swa_attention(q, k, v, window).reshape(B, S, -1), p)
+        o = (_swa_local(q, k, v, window) if is_dtensor(q)
+             else swa_attention(q, k, v, window))
+        return _out_proj(o.reshape(B, S, -1), p)
     k = _repeat_kv(k, cfg.n_heads)
     v = _repeat_kv(v, cfg.n_heads)
     if S > QCHUNK_THRESHOLD:
@@ -212,7 +353,7 @@ def attn_apply(p, cfg: ArchConfig, x, positions, *, window: int = 0,
 
 def cross_attn_apply(p, cfg: ArchConfig, x, kv_states):
     """Cross-attention: q from text x, k/v from encoder/vision states."""
-    q, k, v = _project_qkv(p, cfg, x, kv_states)
+    q, k, v = _project_qkv(p, cfg, whole_dim(x), kv_states)
     k = _repeat_kv(k, cfg.n_heads)
     v = _repeat_kv(v, cfg.n_heads)
     return _sdpa(q, k, v, None, p)
@@ -255,6 +396,22 @@ def _dequant_kv(q, scale, dtype):
     return (q.to(_F32) * scale.to(_F32)[..., None]).to(dtype)
 
 
+def _ring_write(new: dict, n: str, bidx, slot, val):
+    """``new[n]`` with row b's entry at ``slot[b]`` set to ``val[b]``: a
+    copy written in place, or on a DTensor cache (sharded over batch or
+    context) a select against the slot's one-hot, which every sharding
+    partitions without communication."""
+    buf = new[n]
+    if is_dtensor(buf):
+        hit = torch.arange(buf.shape[1], device=buf.device) == slot[:, None]
+        hit = hit.reshape(hit.shape + (1,) * (buf.dim() - 2))
+        new[n] = torch.where(hit, val[:, None].to(buf.dtype), buf)
+    else:
+        buf = buf.clone()
+        buf[bidx, slot] = val
+        new[n] = buf
+
+
 def attn_decode(p, cfg: ArchConfig, x, pos, cache, *, window: int = 0,
                 use_rope: bool = True):
     """Single-token decode. x (B,1,d); pos (B,) absolute position.
@@ -269,21 +426,23 @@ def attn_decode(p, cfg: ArchConfig, x, pos, cache, *, window: int = 0,
     if use_rope:
         cos, sin = rope_angles(pos[:, None], cfg.hd, cfg.rope_theta)
     q, k, v = _project_qkv(p, cfg, x, x, cos, sin, cos, sin)
-    new = {n: t.clone() for n, t in cache.items()}
-    slot = (pos % new["k"].shape[1]).long()
+    new = dict(cache)
+    slot = (pos % cache["k"].shape[1]).long()
     bidx = torch.arange(B, device=x.device)
+    write = lambda n, val: _ring_write(new, n, bidx, slot, val)
     if cfg.kv_cache_dtype == "int8":
         for n, t in (("k", k), ("v", v)):
-            new[n][bidx, slot], new[n + "_scale"][bidx, slot] = _quant_kv(
-                t[:, 0])
+            qv, sc = _quant_kv(t[:, 0])
+            write(n, qv)
+            write(n + "_scale", sc)
         k_use = _dequant_kv(new["k"], new["k_scale"], x.dtype)
         v_use = _dequant_kv(new["v"], new["v_scale"], x.dtype)
     else:
-        new["k"][bidx, slot] = k[:, 0].to(new["k"].dtype)
-        new["v"][bidx, slot] = v[:, 0].to(new["v"].dtype)
+        write("k", k[:, 0].to(cache["k"].dtype))
+        write("v", v[:, 0].to(cache["v"].dtype))
         k_use, v_use = new["k"], new["v"]
+    write("pos", pos.to(cache["pos"].dtype))
     cpos = new["pos"]
-    cpos[bidx, slot] = pos.to(cpos.dtype)
     kk = _repeat_kv(k_use, cfg.n_heads)
     vv = _repeat_kv(v_use, cfg.n_heads)
     valid = (cpos >= 0) & (cpos <= pos[:, None])
@@ -345,7 +504,7 @@ def ffn_init(key, cfg: ArchConfig, L: int | None, dtype, d_ff: int = 0):
 
 
 def ffn_apply(p, x):
-    return swiglu(x, p["wg"], p["wu"], p["wd"])
+    return whole_grad(swiglu(whole_dim(x), p["wg"], p["wu"], p["wd"]))
 
 
 # =========================================================================
@@ -391,6 +550,18 @@ def _moe_route(xt, router, cfg: ArchConfig):
     return gate, idx, E * torch.sum(me * ce)
 
 
+def _running_count(b):
+    """Each element's place among the earlier elements of its bucket ``b``
+    (the running count of a one-hot over the buckets, less one): a stable
+    sort by bucket keeps each bucket's elements in order, so the place is
+    the sorted position less the bucket's first."""
+    order = torch.argsort(b, stable=True)
+    by_b = b[order]
+    first = torch.searchsorted(by_b, by_b)
+    place = torch.arange(b.shape[0], device=b.device) - first
+    return torch.empty_like(place).scatter_(0, order, place)
+
+
 def _moe_slots(idx, cfg: ArchConfig, e_off, e_num: int):
     """Capacity dispatch of the token-major (T·k) slots onto the local
     experts [e_off, e_off + e_num): cap = max(int(capacity_factor·T·k/E),
@@ -406,11 +577,7 @@ def _moe_slots(idx, cfg: ArchConfig, e_off, e_num: int):
     a = idx.reshape(T * k)
     local = (a >= e_off) & (a < e_off + e_num)
     e_loc = torch.where(local, a - e_off, e_num)
-    order = torch.argsort(e_loc, stable=True)
-    by_e = e_loc[order]
-    first = torch.searchsorted(by_e, by_e)
-    place = torch.arange(T * k, device=a.device) - first
-    slot = torch.empty_like(place).scatter_(0, order, place)
+    slot = _running_count(e_loc)
     keep = local & (slot < cap)
     return cap, keep, torch.where(keep, e_loc * cap + slot, e_num * cap)
 
@@ -454,20 +621,223 @@ def _moe_local_dynamic(xt, p, cfg: ArchConfig, e_off, e_num: int):
     return _moe_local(xt, p, cfg, e_off, e_num, 1)
 
 
+class _RankSum(torch.autograd.Function):
+    """The sum over the ranks of ``groups`` (one group after another) of
+    one tensor each, replicated on every rank: all-reduces, or
+    (``ordered``) all-gathers added up in rank order, so every rank gets
+    the same bits in a fixed order. Its gradient is the same sum of the
+    output's gradients (psum's transpose, as ``local_placed`` needs)."""
+
+    @staticmethod
+    def forward(ctx_, x, groups: tuple, ordered: bool):
+        import torch.distributed._functional_collectives as fc
+        ctx_.groups = groups
+        for group in groups:
+            if not ordered:
+                x = _wait(fc.all_reduce(x, "sum", group))
+                continue
+            parts = _wait(fc.all_gather_tensor(x[None], 0, group))
+            x = parts[0]
+            for i in range(1, parts.shape[0]):
+                x = x + parts[i]
+        return x
+
+    @staticmethod
+    def backward(ctx_, g):
+        import torch.distributed._functional_collectives as fc
+        for group in ctx_.groups:
+            g = _wait(fc.all_reduce(g, "sum", group))
+        return g, None, None
+
+
+def _wait(t):
+    return t.wait() if hasattr(t, "wait") else t
+
+
+def _all_to_all(x, group, grad: bool = True):
+    """Row block r of x (ms·c, ...) to rank r of ``group``; block j of the
+    result came from rank j."""
+    import torch.distributed._functional_collectives as fc
+    if grad:
+        return _wait(fc.all_to_all_single_autograd(x, None, None, group))
+    return _wait(fc.all_to_all_single(x, None, None, group))
+
+
+def _replicated(x, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _experts(p):
+    return tuple(p[n] for n in ("router", "we_g", "we_u", "we_d"))
+
+
+def _moe_a2a(x3, p, cfg: ArchConfig, ctx, slots: dict | None = None):
+    """All-to-all expert parallelism (see ``moe_apply``): x (B, S, d) with
+    B sharded over the data axes and S over "model" (the sequence-sharded
+    residual), flattened on the local shard. Each rank routes its tokens,
+    sends each kept (token, k) slot to its expert's owner rank (at most
+    c_send a destination, in slot order), computes its expert slice on
+    what arrived (at most c_exp an expert, in arrival order; ids -1 mark
+    empty rows), and a second all-to-all brings the results home. The
+    router aux is averaged over every rank of the mesh. ``slots`` (a dict) receives
+    this rank's ``keep`` and ``keep2`` masks."""
+    ms = ctx.model_size
+    e_num = cfg.n_experts // ms
+    k = cfg.n_experts_per_tok
+    mgroup = ctx.mesh.get_group(ctx.model_axis)
+    # the mesh's own ranks: "model", then the data axes minor to major
+    groups = tuple(ctx.mesh.get_group(a)
+                   for a in (ctx.model_axis,) + tuple(ctx.data_axes)[::-1])
+    n_all = ctx.data_size * ms
+
+    def local(x_l, router, we_g, we_u, we_d):
+        B_l, S_l, d = x_l.shape
+        T_l = B_l * S_l
+        xt = x_l.reshape(T_l, d)
+        gate, idx, aux = _moe_route(xt, router, cfg)
+        aux = _RankSum.apply(aux, groups, True) / n_all
+
+        # ---- send side: group the (token, k) slots by owner rank -------
+        c_send = max(int(cfg.capacity_factor * T_l * k / ms), 4)
+        a = idx.reshape(T_l * k)
+        g = gate.reshape(T_l * k).to(xt.dtype)
+        dst = a // e_num                                  # owner rank
+        eid = a - dst * e_num                             # expert there
+        slot = _running_count(dst)
+        keep = slot < c_send
+        tgt = torch.where(keep, dst * c_send + slot, ms * c_send)
+        rows = xt[:, None, :].expand(T_l, k, d).reshape(T_l * k, d)
+        send_x = xt.new_zeros((ms * c_send + 1, d)).index_put((tgt,), rows)
+        send_e = torch.full((ms * c_send + 1,), -1, dtype=torch.int32,
+                            device=xt.device).index_put(
+            (tgt,), torch.where(keep, eid, -1).to(torch.int32))
+
+        # ---- exchange: row block r goes to rank r ----------------------
+        recv_x = _all_to_all(send_x[:-1], mgroup)
+        recv_e = _all_to_all(send_e[:-1], mgroup, grad=False)
+
+        # ---- receive side: dispatch to the local experts ---------------
+        c_exp = max(int(cfg.capacity_factor * T_l * k / e_num), 4)
+        valid = recv_e >= 0
+        e_loc = torch.where(valid, recv_e, e_num)
+        slot2 = _running_count(e_loc)
+        keep2 = valid & (slot2 < c_exp)
+        tgt2 = torch.where(keep2, e_loc * c_exp + slot2, e_num * c_exp)
+        xin = xt.new_zeros((e_num * c_exp + 1, d)).index_put((tgt2,), recv_x)
+        xin = xin[:-1].reshape(e_num, c_exp, d)
+        h = F.silu(torch.bmm(xin, we_g)) * torch.bmm(xin, we_u)
+        y_e = torch.bmm(h, we_d)
+
+        # ---- inverse path ------------------------------------------------
+        y_flat = torch.cat([y_e.reshape(e_num * c_exp, d),
+                            xt.new_zeros((1, d))])
+        y_rows = _all_to_all(y_flat[tgt2], mgroup)
+        safe = torch.where(keep, tgt, 0)
+        w = (g * keep.to(g.dtype)).reshape(T_l, k, 1)
+        y = y_rows[safe].reshape(T_l, k, d) * w
+        out = y[:, 0]
+        for j in range(1, k):
+            out = out + y[:, j]
+        if slots is not None:
+            slots.update(keep=keep, keep2=keep2)
+        return out.reshape(B_l, S_l, d), aux
+
+    dp, m = ctx.data_spec_axes, ctx.model_axis
+    ex = P(m, None, None)
+    return local_region(local, ctx.mesh,
+                        (P(dp, m, None), P(None, None), ex, ex, ex),
+                        (P(dp, m, None), P()))(x3, *_experts(p))
+
+
+def _moe_replicated_ep(xt, p, cfg: ArchConfig, ctx, data: bool = True):
+    """Replicated-token expert parallelism, for few tokens (decode): every
+    "model" rank routes the same tokens (sharded over the data axes, or
+    whole with ``data=False``), computes its expert slice, and an
+    all-reduce over "model" adds the slices; the aux is the mean over
+    "model" (it differs between data shards, as in the JAX package, whose
+    replicated output takes the first shard's)."""
+    ms = ctx.model_size
+    e_num = cfg.n_experts // ms
+    mgroup = ctx.mesh.get_group(ctx.model_axis)
+    m = ctx.model_axis
+
+    def local(xt_l, router, we_g, we_u, we_d):
+        rank = ctx.mesh.get_local_rank(m)
+        p_l = {"router": router, "we_g": we_g, "we_u": we_u, "we_d": we_d}
+        out, aux = _moe_local_dynamic(xt_l, p_l, cfg, rank * e_num, e_num)
+        return (_RankSum.apply(out, (mgroup,), False),
+                _RankSum.apply(aux, (mgroup,), True) / ms)
+
+    dp = ctx.data_spec_axes if data else None
+    ex = P(m, None, None)
+    return local_region(local, ctx.mesh,
+                        (P(dp, None), P(None, None), ex, ex, ex),
+                        (P(dp, None), P()))(xt, *_experts(p))
+
+
+def _moe_local_gathered(xt, p, cfg: ArchConfig, ctx):
+    """The single-device MoE of few tokens that the data axes do not
+    divide (B=1 long-context decode) under a mesh: every rank holds the
+    tokens whole; experts sharded over "model" compute their slice and an
+    all-reduce adds them (the JAX package leaves GSPMD to partition the
+    expert matmuls over E), experts not sharded so are gathered."""
+    if cfg.n_experts % ctx.model_size == 0:
+        return _moe_replicated_ep(xt, p, cfg, ctx, data=False)
+    rep = P(None, None, None)
+
+    def local(xt_l, router, we_g, we_u, we_d):
+        p_l = {"router": router, "we_g": we_g, "we_u": we_u, "we_d": we_d}
+        return _moe_local(xt_l, p_l, cfg, 0, cfg.n_experts, 1)
+
+    return local_region(local, ctx.mesh,
+                        (P(None, None), P(None, None), rep, rep, rep),
+                        (P(None, None), P()))(xt, *_experts(p))
+
+
 def moe_apply(p, cfg: ArchConfig, x, ctx=None):
-    """MoE FFN of x (B, S, d): (y, aux), the routed experts plus the shared
-    ones. The JAX package's single-device branch (``ctx`` None, or no
-    multi-device mesh); its expert parallelism over a mesh
-    (``_moe_a2a``, ``_moe_replicated_ep``) waits for ROADMAP queue 1, item
-    12b, and a mesh ctx with model_size > 1 raises."""
-    if (ctx is not None and getattr(ctx, "mesh", None) is not None
-            and getattr(ctx, "model_size", 1) > 1):
-        raise NotImplementedError(
-            "MoE expert parallelism over a device mesh is not ported yet "
-            "(ROADMAP queue 1, item 12b)")
+    """MoE FFN of x (B, S, d): (y, aux), the routed experts plus the
+    shared ones.
+
+    Distribution, in the JAX package's order:
+      * mesh ctx with model_size > 1 and enough tokens (B divides over
+        the data axes, S over "model", and each rank holds at least
+        model_size tokens) -> all-to-all expert parallelism
+        (``_moe_a2a``): tokens stay sharded over every mesh axis and only
+        the slots move, two all-to-alls of (ranks, c_send, d) a layer;
+      * mesh ctx whose data axes divide T -> replicated-token expert
+        parallelism (``_moe_replicated_ep``);
+      * mesh ctx otherwise (B=1 long-context decode) -> the local MoE on
+        whole tokens, its expert matmuls split over "model";
+      * no multi-device mesh -> the single-device capacity MoE.
+    Plain tensors given under a mesh count as replicated; what comes
+    back is then plain too."""
     B, S, d = x.shape
-    out, aux = _moe_local(x.reshape(B * S, d), p, cfg, 0, cfg.n_experts, 1)
-    y = out.reshape(B, S, d)
+    T = B * S
+    if not (has_mesh(ctx) and ctx.model_size > 1):
+        out, aux = _moe_local(x.reshape(T, d), p, cfg, 0, cfg.n_experts, 1)
+        return _shared(p, x, out.reshape(B, S, d), aux)
+    if not is_dtensor(x):
+        from repro_torch.nn.pytree import tree_map
+        y, aux = moe_apply(tree_map(lambda t: _replicated(t, ctx.mesh), p),
+                           cfg, _replicated(x, ctx.mesh), ctx)
+        return y.full_tensor(), aux.full_tensor()
+    ds, ms = ctx.data_size, ctx.model_size
+    if B % ds == 0 and S % ms == 0 and T // (ds * ms) >= ms:
+        y, aux = _moe_a2a(x, p, cfg, ctx)
+    else:
+        dp = ctx.data_spec_axes if B % ds == 0 else None
+        xt = constrain(x, P(dp, None, None), ctx).reshape(T, d)
+        if T % ds == 0:
+            out, aux = _moe_replicated_ep(xt, p, cfg, ctx)
+        else:
+            out, aux = _moe_local_gathered(xt, p, cfg, ctx)
+        y = out.reshape(B, S, d)
+    return _shared(p, x, y, aux)
+
+
+def _shared(p, x, y, aux):
     if "shared" in p:
         y = y + ffn_apply(p["shared"], x)
     return y, aux
@@ -582,10 +952,25 @@ def _causal_conv(u, w, b):
     return (y + b.to(_F32)).to(u.dtype)
 
 
+def _ssd_local(scan, xh, dt, A, Bv, Cv, chunk: int):
+    """Kernel #7 on DTensors: each rank's local batch and SSD heads (the
+    B/C groups with them where there are several), the sequence whole.
+    Returns y."""
+    G = Bv.shape[2]
+    b, h = _mesh_specs(xh.device_mesh, xh.shape[0],
+                       (xh.shape[2],) + ((G,) if G > 1 else ()))
+    g = h if G > 1 else None
+    return local_region(
+        lambda *a: scan(*a, chunk=chunk)[0], xh.device_mesh,
+        (P(b, None, h, None), P(b, None, h), P(h), P(b, None, g, None),
+         P(b, None, g, None)), P(b, None, h, None))(xh, dt, A, Bv, Cv)
+
+
 def ssm_apply(p, cfg: ArchConfig, x, *, chunk: int = 128, ssd_fn=None):
     """Full-sequence Mamba-2 mixer (training / prefill), the scan through
     ``kernels.ssd_scan``, or through ``ssd_fn`` where one is given (for
     instance ``ssd_ref``), called as the scan is."""
+    x = whole_dim(x)
     B, S, d = x.shape
     nh, hd = cfg.ssm_nheads, cfg.ssm_headdim
     G, N = cfg.ssm_ngroups, cfg.ssm_state
@@ -604,12 +989,16 @@ def ssm_apply(p, cfg: ArchConfig, x, *, chunk: int = 128, ssd_fn=None):
 
     A = -torch.exp(p["A_log"])
     xh = xin.reshape(B, S, nh, hd)
-    y, _ = (ssd_fn or ssd_scan)(xh, dt, A, Bv, Cv, chunk=chunk)
+    scan = ssd_fn or ssd_scan
+    if is_dtensor(xh):
+        y = _ssd_local(scan, xh, dt, A, Bv, Cv, chunk)
+    else:
+        y, _ = scan(xh, dt, A, Bv, Cv, chunk=chunk)
     y = y + xh * p["D"][None, None, :, None].to(y.dtype)
     y = y.reshape(B, S, cfg.d_inner)
     y = rms_norm(y * F.silu(z.to(_F32)).to(y.dtype), p["gnorm"],
                  cfg.norm_eps)
-    return y @ p["wo"]
+    return whole_grad(y @ p["wo"])
 
 
 def ssm_cache_init(cfg: ArchConfig, L: int | None, batch: int, dtype,

@@ -32,6 +32,8 @@ from repro_torch.models import blocks as B
 from repro_torch.models.config import ArchConfig
 from repro_torch.nn.init import normal_init, scaled_init
 from repro_torch.nn.pytree import tree_map, tree_stack
+from repro_torch.sharding.context import has_mesh, is_dtensor, mesh_scope
+from repro_torch.sharding.specs import P, constrain, whole_dim
 
 
 @dataclass(frozen=True)
@@ -134,11 +136,36 @@ def _layer(sp, i: int):
     return tree_map(lambda a: a[i], sp)
 
 
+def _gather_point(h, ctx):
+    """The levers on the re-gather of a block's input under sequence
+    sharding: ``gather_once`` forces one replicated gather per block;
+    ``quant_gather`` sends int8 values and a float32 scale per row
+    instead (half the bytes of bf16), dequantised on the replicated
+    side. The int8 round trip runs whenever a mesh is set, on any mesh
+    size, as in the JAX package. Otherwise nothing."""
+    if not has_mesh(ctx) or not ctx.seq_shard:
+        return h
+    if h.dim() != 3 or h.shape[1] <= 1:
+        return h
+    rep = P(ctx.data_spec_axes, None, None)
+    if ctx.quant_gather:
+        hf = h.to(torch.float32)
+        scale = torch.amax(torch.abs(hf), dim=-1, keepdim=True) / 127.0 \
+            + 1e-12
+        q = torch.clamp(torch.round(hf / scale), -127, 127).to(torch.int8)
+        q = constrain(q, rep, ctx)
+        scale = constrain(scale, rep, ctx)
+        return (q.to(torch.float32) * scale).to(h.dtype)
+    if ctx.gather_once:
+        return constrain(h, rep, ctx)
+    return h
+
+
 def _layer_apply(cfg: ArchConfig, seg: SegmentSpec, lp, x, positions, ctx):
     """One layer's forward: (x, aux), aux the MoE router loss (zero for
     the other kinds)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = B._norm(cfg, x, lp.get("ln1"))
+    h = _gather_point(B._norm(cfg, x, lp.get("ln1")), ctx)
     if seg.kind == "ssm":
         x = x + B.ssm_apply(lp["ssm"], cfg, h)
     elif seg.kind == "hybrid":
@@ -151,13 +178,27 @@ def _layer_apply(cfg: ArchConfig, seg: SegmentSpec, lp, x, positions, ctx):
         x = x + B.attn_apply(lp["attn"], cfg, h, positions,
                              window=seg.window, ctx=ctx)
     if seg.kind in ("dense", "hybrid"):
-        x = x + B.ffn_apply(lp["ffn"], B._norm(cfg, x, lp.get("ln2")))
+        x = x + B.ffn_apply(lp["ffn"],
+                            _gather_point(B._norm(cfg, x, lp.get("ln2")),
+                                          ctx))
     elif seg.kind == "moe":
         y, a = B.moe_apply(lp["moe"], cfg, B._norm(cfg, x, lp.get("ln2")),
                            ctx)
         x = x + y
         aux = aux + a
     return x, aux
+
+
+def _seq_constraint(x, ctx):
+    """Sequence sharding of the residual stream: the carry (and so each
+    layer's saved input) shards S over "model", cutting saved-activation
+    memory by the TP degree; DTensor gathers before attention and
+    reduce-scatters after the projections."""
+    if not has_mesh(ctx) or not ctx.seq_shard:
+        return x
+    if x.dim() != 3 or x.shape[1] % ctx.model_size or x.shape[1] <= 1:
+        return x
+    return constrain(x, P(ctx.data_spec_axes, ctx.model_axis, None), ctx)
 
 
 def _remat(fn, x, remat: bool):
@@ -175,14 +216,19 @@ def _run_segment(cfg, seg, sp, x, positions, ctx, remat: bool):
     JAX package's ``jax.checkpoint`` of the scan body does."""
     remat = remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    def body(x, i):
+        y, a = _layer_apply(cfg, seg, _layer(sp, i), _seq_constraint(x, ctx),
+                            positions, ctx)
+        return _seq_constraint(y, ctx), a
+
     for i in range(seg.n_layers):
-        x, a = _remat(lambda x, i=i: _layer_apply(cfg, seg, _layer(sp, i), x,
-                                                  positions, ctx), x, remat)
+        x, a = _remat(lambda x, i=i: body(x, i), x, remat)
         aux = aux + a
     return x, aux
 
 
 def _logits(cfg: ArchConfig, params, x):
+    x = whole_dim(x) if x.dim() == 3 else x
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head
     if cfg.padded_vocab != cfg.vocab_size:
@@ -197,36 +243,46 @@ def forward_hidden(cfg: ArchConfig, params, batch, ctx=None,
     router loss, summed; zero without MoE layers)."""
     tokens = batch["tokens"]
     Bb, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device)[None].expand(Bb, S)
-    x = params["embed"][tokens]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for seg, sp in zip(segment_plan(cfg), params["segments"]):
-        x, a = _run_segment(cfg, seg, sp, x, positions, ctx, remat)
-        aux = aux + a
-    return B._norm(cfg, x, params.get("final_norm")), aux
+    with mesh_scope(ctx):
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(Bb, S)
+        x = B.embed_lookup(params["embed"], tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for seg, sp in zip(segment_plan(cfg), params["segments"]):
+            x, a = _run_segment(cfg, seg, sp, x, positions, ctx, remat)
+            aux = aux + a
+        return B._norm(cfg, x, params.get("final_norm")), aux
 
 
 def forward(cfg: ArchConfig, params, batch, ctx=None, remat: bool = True):
     """batch: {"tokens": (B,S) int}. Returns (logits (B,S,Vp), aux)."""
     x, aux = forward_hidden(cfg, params, batch, ctx, remat)
-    return _logits(cfg, params, x), aux
+    with mesh_scope(ctx):
+        return _logits(cfg, params, x), aux
 
 
 def prefill(cfg: ArchConfig, params, batch, ctx=None):
     """Next-token logits (B,Vp) of ``forward``'s last position; the LM head
     runs on that position only."""
     x, _ = forward_hidden(cfg, params, batch, ctx, remat=False)
-    return _logits(cfg, params, x[:, -1])
+    with mesh_scope(ctx):
+        return _logits(cfg, params, whole_dim(x)[:, -1])
 
 
 def _chunk_nll(cfg: ArchConfig, params, x, labels, mask):
     """One chunk's summed NLL and weight: its logits, a float32
-    log-sum-exp about the (constant) row max, the label's logit."""
+    log-sum-exp about the (constant) row max, the label's logit (on
+    vocab-sharded DTensor logits through a one-hot sum, as the JAX
+    package takes it: each rank's vocab slice and an all-reduce)."""
     lf = _logits(cfg, params, x).to(torch.float32)
     m = torch.amax(lf, dim=-1, keepdim=True).detach()
     lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
-    ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    if is_dtensor(lf):
+        onehot = torch.arange(lf.shape[-1], device=lf.device) == \
+            labels[..., None]
+        ll = torch.sum(torch.where(onehot, lf, 0.0), dim=-1)
+    else:
+        ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
     w = mask.to(torch.float32)
     return torch.sum((lse - ll) * w), torch.sum(w)
 
@@ -238,6 +294,12 @@ def chunked_ce(cfg: ArchConfig, params, x, labels, mask=None,
     logits and partial NLL under a non-reentrant checkpoint, so the
     backward recomputes the chunk's logits. Masked positions weigh 0; the
     mean is over the unmasked ones."""
+    with mesh_scope(ctx):
+        return _chunked_ce(cfg, params, x, labels, mask, chunk)
+
+
+def _chunked_ce(cfg, params, x, labels, mask, chunk):
+    x = whole_dim(x)
     Bb, S, _ = x.shape
     c = min(chunk, S)
     while S % c != 0:
@@ -266,7 +328,8 @@ def loss(cfg: ArchConfig, params, batch, ctx=None):
     x, aux = forward_hidden(cfg, params, batch, ctx)
     ce = chunked_ce(cfg, params, x, batch["labels"], batch.get("mask"),
                     ctx=ctx)
-    return ce + cfg.router_aux_weight * aux
+    with mesh_scope(ctx):
+        return ce + cfg.router_aux_weight * aux
 
 
 # =========================================================================
@@ -318,8 +381,13 @@ def decode_step(cfg: ArchConfig, params, cache, batch, ctx=None):
     """One serve step: batch {"token": (B,), "pos": (B,)} -> (logits (B,Vp),
     new_cache). The cache holds `cache_len` past positions (ring buffer);
     the given cache is not written."""
+    with mesh_scope(ctx):
+        return _decode_step(cfg, params, cache, batch, ctx)
+
+
+def _decode_step(cfg: ArchConfig, params, cache, batch, ctx):
     token, pos = batch["token"], batch["pos"]
-    x = params["embed"][token][:, None, :]
+    x = B.embed_lookup(params["embed"], token)[:, None, :]
     new_segments = []
     for seg, sp, sc in zip(segment_plan(cfg), params["segments"],
                            cache["segments"]):

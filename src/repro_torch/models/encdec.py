@@ -162,7 +162,8 @@ def forward_hidden(cfg: ArchConfig, params, batch, ctx=None,
     Bb, S = tokens.shape
     steps = torch.arange(S, dtype=torch.int32, device=tokens.device)
     positions = steps[None].expand(Bb, S)
-    x = params["embed"][tokens] + _pos_embed(params, steps)[None]
+    x = (B.embed_lookup(params["embed"], tokens)
+         + _pos_embed(params, steps)[None])
 
     def body(lp, x):
         h = _ln(x, lp["ln1"], cfg.norm_eps)
@@ -228,7 +229,8 @@ def decode_step(cfg: ArchConfig, params, cache, batch, ctx=None):
     """batch: {"token": (B,), "pos": (B,)} -> (logits (B,Vp), new_cache);
     the cross K/V must be prefilled. The given cache is not written."""
     token, pos = batch["token"], batch["pos"]
-    x = (params["embed"][token] + _pos_embed(params, pos))[:, None, :]
+    x = (B.embed_lookup(params["embed"], token)
+         + _pos_embed(params, pos))[:, None, :]
     new_self = []
     for i in range(cfg.n_layers):
         lp = _layer(params["dec_layers"], i)

@@ -18,9 +18,10 @@ them). On the card each self layer's causal attention runs kernel #6
 as in the JAX package. The image embeddings are cast to the model's
 dtype on entry. Training gives each layer (a cross block or a self
 block) one non-reentrant checkpoint; the JAX package checkpoints each
-group, which recomputes the same layers. The JAX package's sequence
-sharding constraint (``_seq_constraint``) has no counterpart without a
-device mesh (ROADMAP queue 1, item 12b).
+group, which recomputes the same layers. Under a mesh ``ctx`` the
+carry is held sequence-sharded (``decoder._seq_constraint``) where the
+JAX package constrains it: entering each group, entering each self
+layer and leaving the group.
 """
 from __future__ import annotations
 
@@ -31,10 +32,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.decoder import (
-    _dtype, _layer, _logits, _remat, chunked_ce,
+    _dtype, _layer, _logits, _remat, _seq_constraint, chunked_ce,
 )
 from repro_torch.nn.init import normal_init, scaled_init
 from repro_torch.nn.pytree import tree_stack
+from repro_torch.sharding.context import mesh_scope
+from repro_torch.sharding.specs import whole_dim
 
 _F32 = torch.float32
 
@@ -109,8 +112,13 @@ def forward_hidden(cfg: ArchConfig, params, batch, ctx=None,
                    remat: bool = True):
     """batch: {"tokens": (B,S), "image_embeds": (B,T_img,d)} ->
     final-normed hidden states (B,S,d)."""
+    with mesh_scope(ctx):
+        return _forward_hidden(cfg, params, batch, ctx, remat)
+
+
+def _forward_hidden(cfg: ArchConfig, params, batch, ctx, remat: bool):
     tokens = batch["tokens"]
-    x = params["embed"][tokens]
+    x = B.embed_lookup(params["embed"], tokens)
     vision = batch["image_embeds"].to(x.dtype)
     Bb, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
@@ -119,27 +127,31 @@ def forward_hidden(cfg: ArchConfig, params, batch, ctx=None,
     remat = remat and torch.is_grad_enabled()
     for g in range(_n_groups(cfg)):
         gp = _layer(params["groups"], g)
-        x = _remat(lambda x, gp=gp: _cross_block(cfg, gp["cross"], x,
-                                                  vision), x, remat)
+        x = _remat(lambda x, gp=gp: _cross_block(
+            cfg, gp["cross"], _seq_constraint(x, ctx), vision), x, remat)
         for s in range(cfg.cross_every - 1):
             lp = _layer(gp["selfs"], s)
-            x = _remat(lambda x, lp=lp: _self_block(cfg, lp, x, positions,
-                                                     win, ctx), x, remat)
+            x = _remat(lambda x, lp=lp: _self_block(
+                cfg, lp, _seq_constraint(x, ctx), positions, win, ctx),
+                x, remat)
+        x = _seq_constraint(x, ctx)
     return B.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
 def forward(cfg: ArchConfig, params, batch, ctx=None, remat: bool = True):
     """Returns (logits (B,S,Vp), aux 0)."""
     x = forward_hidden(cfg, params, batch, ctx, remat)
-    return _logits(cfg, params, x), torch.zeros((), dtype=_F32,
-                                                device=x.device)
+    with mesh_scope(ctx):
+        return _logits(cfg, params, x), torch.zeros((), dtype=_F32,
+                                                    device=x.device)
 
 
 def prefill(cfg: ArchConfig, params, batch, ctx=None):
     """Next-token logits (B,Vp) of ``forward``'s last position; the LM head
     runs on that position only."""
     x = forward_hidden(cfg, params, batch, ctx, remat=False)
-    return _logits(cfg, params, x[:, -1])
+    with mesh_scope(ctx):
+        return _logits(cfg, params, whole_dim(x)[:, -1])
 
 
 def loss(cfg: ArchConfig, params, batch, ctx=None):
@@ -183,7 +195,7 @@ def decode_step(cfg: ArchConfig, params, cache, batch, ctx=None):
     """batch: {"token": (B,), "pos": (B,)} -> (logits (B,Vp), new_cache);
     the cross K/V must be prefilled. The given cache is not written."""
     token, pos = batch["token"], batch["pos"]
-    x = params["embed"][token][:, None, :]
+    x = B.embed_lookup(params["embed"], token)[:, None, :]
     win = _self_window(cfg)
     new_self = []
     for g in range(_n_groups(cfg)):

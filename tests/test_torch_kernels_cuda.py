@@ -880,6 +880,33 @@ def test_ssd_kernel_starts_from_a_given_state(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,G,P,N", [
+    (4, 2048, 24, 1, 64, 128),    # mamba2-130m's prefill
+    (8, 4096, 50, 1, 64, 16),     # 12,800 blocks
+    (2, 16384, 8, 1, 64, 16),     # 128 chunks: four look-back windows
+])
+def test_ssd_kernel_repeats_its_bits(B, S, H, G, P, N, dtype):
+    """The look-back sums each chunk's incoming carry in a fixed order:
+    five calls give the same y and state bit for bit, within the
+    kernel's tolerance of the plain version."""
+    _need_cuda()
+    args = _ssd_inputs(B, S, H, G, P, N, dtype, seed=S + H)
+    outs = [ssd_ops.ssd_scan(*args, chunk=128) for _ in range(5)]
+    y_r, st_r = ssd_ref(*args, chunk=128)
+    torch.cuda.synchronize()
+    for y, st in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(st, outs[0][1])
+    y, st = outs[0]
+    if dtype == torch.float32:
+        assert (y - y_r).abs().max().item() <= 3e-5
+    else:
+        assert bf16_steps(y, y_r) <= 1.0
+    assert (st - st_r).abs().max().item() <= 3e-5
+
+
+@pytest.mark.cuda
 def test_ssd_kernel_gradients_replay_the_plain_version():
     _need_cuda()
     args = _ssd_inputs(1, 64, 4, 1, 16, 16, torch.float32, seed=3)

@@ -10,7 +10,8 @@ the one-hot running count), the output rel ≤ 1e-6 and the aux within
 1e-6; ``_moe_local_dynamic`` on each half of the experts; ``moe_apply``
 and its gradients (1e-4 of each leaf's largest |g|); decode against the
 teacher-forced forward at capacity 16 (tests/test_decode_parity.py's
-contract); a tight capacity changes the output; a mesh ctx raises.
+contract); a tight capacity changes the output; a mesh ctx takes JAX's
+expert-parallel branch.
 Then the slab draws: a leaf filled 7 elements at a time is the one-shot
 draw bit for bit, the words across the 2^32 counter boundary are the
 threefry of their (hi, lo) words, and a leaf of deepseek's stacked
@@ -241,11 +242,54 @@ def test_capacity_semantics():
     assert float((hi - lo).abs().max()) > 1e-6
 
 
-def test_mesh_ctx_raises_naming_12b(moe):
+class _Mesh:
+    """The two members ``DistCtx`` reads of a (data, model) DeviceMesh."""
+
+    def __init__(self, data: int, model: int):
+        self.mesh_dim_names = ("data", "model")
+        self._sizes = (data, model)
+
+    def size(self, dim):
+        return self._sizes[dim]
+
+
+def _jax_branch(B: int, S: int, ds: int, ms: int) -> str:
+    """The branch JAX's ``moe_apply`` takes under a mesh of model > 1."""
+    T = B * S
+    if B % ds == 0 and S % ms == 0 and T // (ds * ms) >= ms:
+        return "a2a"
+    return "replicated" if T % ds == 0 else "local"
+
+
+def test_mesh_ctx_raises_naming_12b(moe, monkeypatch):
+    """A mesh ctx with model_size > 1 takes expert parallelism by JAX's
+    conditions: ``_moe_a2a`` when B, S and the tokens per rank divide,
+    ``_moe_replicated_ep`` when the data axes divide T, the local MoE on
+    whole tokens otherwise (the three recorded here on stand-ins); a ctx
+    without a multi-device mesh takes the single-device branch."""
+    from repro_torch.sharding.context import DistCtx
     x3 = torch.tensor(moe["x3"])
-    mesh = types.SimpleNamespace(mesh=object(), model_size=2, data_size=1)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tB.moe_apply(moe["p_t"], moe["cfg_t"], x3, mesh)
+    taken = []
+
+    def stand_in(name):
+        def run(x, p, cfg, ctx, *a, **kw):
+            taken.append(name)
+            return torch.zeros_like(x), torch.zeros(())
+        return run
+
+    monkeypatch.setattr(tB, "_moe_a2a", stand_in("a2a"))
+    monkeypatch.setattr(tB, "_moe_replicated_ep", stand_in("replicated"))
+    monkeypatch.setattr(tB, "_moe_local_gathered", stand_in("local"))
+    monkeypatch.setattr(tB, "is_dtensor", lambda t: True)
+    cases = [(1, 2), (1, 4), (2, 2), (2, 8), (1, 16), (4, 4), (5, 2),
+             (3, 2), (7, 4)]
+    for ds, ms in cases:
+        ctx = DistCtx(mesh=_Mesh(ds, ms))
+        y, a = tB.moe_apply(moe["p_t"], moe["cfg_t"], x3, ctx)
+        assert taken[-1] == _jax_branch(B, S, ds, ms), (ds, ms)
+        assert y.shape == x3.shape
+    assert set(taken) == {"a2a", "replicated", "local"}
+    monkeypatch.undo()
     # a ctx without a multi-device mesh takes the single-device branch
     y0, a0 = tB.moe_apply(moe["p_t"], moe["cfg_t"], x3)
     for ctx in (types.SimpleNamespace(mesh=None, model_size=1),
